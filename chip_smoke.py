@@ -9,19 +9,34 @@ It exits non-zero, printing no result, when there is no card. Phases:
 1. the card's name and power limit;
 2. build every kernel from dab_radio_tpu_torch/csrc (one nvcc per source);
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   the receive chain gives it, with CUDA-event times of both;
+   the receive chain gives it, with CUDA-event times of both and the
+   roofline bound of the work;
 4. the main path: an 18-service, 864-CU mode-I ensemble from the port's
    transmitter, with a carrier offset and AWGN, quantised to u8, decoded by
    the port's radio_cli on the card; every access unit must come back
    byte-exact with desync=0, no RS or AU-CRC error and no firecode error
-   past superframe sync, and the Viterbi kernels must have run for both
-   the FIC and the MSC;
-5. a JSON line of the kernels, then the last line
-   {"ok": true, "device": {...}}.
+   past superframe sync, and the fused Viterbi kernel must have run for
+   both the FIC and the MSC, once per decode, and the kernel pair not at
+   all;
+5. the long-trellis path: one 864-CU EEP 4-A subchannel (1728 kbit/s, a
+   trellis of 41,478 steps) from the port's MSCEncoder, with noise, through
+   the port's MSCDecoder on the card; every payload byte-exact, decoded by
+   the forward and chainback kernel pair;
+6. which host native libraries run as shared libraries, a JSON line of the
+   kernels, then the last line {"ok": true, "device": {...}}.
 
 Scratch files go to build/chip_smoke/ in the checkout.
+
+    python3 chip_smoke.py --measure [--frames 50]
+
+measures instead: it builds the kernels, makes the same ensemble over more
+frames and decodes it with radio_cli on the card once cold and five times
+warm (wall time and real-time factor), once with the stage spans on, and
+once under torch.profiler (device busy share, device time by kernel). The
+numbers are printed and written to build/chip_smoke/measure.json.
 """
 
+import argparse
 import glob
 import json
 import os
@@ -45,12 +60,62 @@ SEED = 2024
 
 # K1 shapes (B messages, T trellis steps): the FIC decode of a frame, the
 # 18-subchannel MSC group, a batch past the Pallas kernel's 128-lane cap,
-# and the trellis of a 384 kbit/s subchannel
+# 16 streams of the 18-service ensemble in one round, and the trellis of a
+# 384 kbit/s subchannel
 K1_SHAPES = [("fic", 4, 774), ("msc_group", 72, 1542), ("wide", 1024, 1542),
-             ("long", 8, 9222)]
+             ("round16", 1152, 1542), ("long", 8, 9222)]
+PLAIN_TIMED = ("fic", "msc_group")      # the plain loops take 0.1 to 0.9 s
+# the long-trellis path: 864 CU at EEP 4-A, 4 CIFs a frame
+LONG_CU = 864
+LONG_T = 41478
+LONG_FRAMES = 5                          # 20 CIFs: 16 fill the deinterleaver
+LONG_NOISE_STD = 30.0
 # the Pallas kernel body, and the lax.scan chainback of viterbi_decode_pallas
-REPLACES = {"viterbi_acs": "dab_radio_tpu/ops/viterbi_pallas.py:46",
+REPLACES = {"viterbi_decode_fused": "dab_radio_tpu/ops/viterbi_pallas.py:46",
+            "viterbi_acs": "dab_radio_tpu/ops/viterbi_pallas.py:46",
             "viterbi_chainback": "dab_radio_tpu/ops/viterbi_pallas.py:151"}
+# the shape each kernel's entry in the JSON line is taken at: the one its
+# path gives it most of the work at
+REPORT_SHAPE = {"viterbi_decode_fused": "msc_group", "viterbi_acs": "eep4a_864cu",
+                "viterbi_chainback": "eep4a_864cu"}
+# the path of this script that launches each kernel: the other launches it
+# no time, which that path checks
+KERNEL_PATH = {"viterbi_decode_fused": "main", "viterbi_acs": "long",
+               "viterbi_chainback": "long"}
+
+# Roofline of one H100 SXM. Device memory: 3.35 TB/s. int32 outside the
+# tensor cores: 64 lanes on each of 132 SMs at 1.98 GHz, one operation a
+# lane and cycle (a quarter of the published 67 TFLOP/s of float32, which
+# counts 128 lanes and two operations per multiply-add).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# per message and trellis step: 64 new states x (2 adds, compare, select),
+# and 8 branch metrics of 3 adds each. The 16 sign patterns of a step's 4
+# symbols come in 8 pairs of opposite sign, since every generator taps the
+# oldest and the newest register bit: a butterfly's four metrics are +m, -m,
+# -m, +m for one m, and a negation folds into the add that uses it.
+ACS_OPS_PER_STEP = 64 * 4 + 8 * 3
+# chainback per step: select the word, shift, mask, shift-or into the state
+CHAINBACK_OPS_PER_STEP = 5
+
+
+def bound(name, B, T):
+    """(bound_ms, bound_by) of one kernel's work on B messages of T steps:
+    every input byte read once, every output byte written once, against
+    the int32 operations."""
+    steps = B * T
+    nb_bytes, ops = {
+        "viterbi_decode_fused": (4 * steps + steps + 4 * B,
+                                 (ACS_OPS_PER_STEP + CHAINBACK_OPS_PER_STEP)
+                                 * steps),
+        "viterbi_acs": (4 * steps + 8 * steps + 4 * B,
+                        ACS_OPS_PER_STEP * steps),
+        "viterbi_chainback": (8 * steps + steps,
+                              CHAINBACK_OPS_PER_STEP * steps),
+    }[name]
+    t_bytes = nb_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def log(msg):
@@ -104,11 +169,18 @@ def _encoded_soft(rng, B, T):
 
 
 def _cuda_ms(fn, reps):
+    """Device time of one fn() in ms, from CUDA events around reps calls.
+    The calls are queued behind a matrix product of a few milliseconds, so
+    that the card runs them back to back and the time of the host's
+    launches (longer than a short kernel) stays out of the reading."""
     import torch
     fn()
+    blocker = torch.empty((4096, 4096), device="cuda")
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    for _ in range(max(1, reps // 10)):
+        torch.mm(blocker, blocker)
     start.record()
     for _ in range(reps):
         fn()
@@ -118,44 +190,80 @@ def _cuda_ms(fn, reps):
 
 
 def check_kernels(dev):
-    """K1 (forward ACS + chainback) against the plain versions; returns
-    per-kernel {ms, plain_ms, max_abs_err} at the MSC group shape."""
+    """The three kernels of K1 against the plain versions, bit for bit, at
+    every shape; returns {kernel: {shape name: {B, T, ms, plain_ms,
+    max_abs_err, bound_ms, bound_by}}}."""
     import torch
     from dab_radio_tpu_torch.kernels import viterbi_acs as K
     rng = np.random.default_rng(SEED)
     cases = [(name, _encoded_soft(rng, B, T)) for name, B, T in K1_SHAPES]
     cases.append(("all_zero_ties", np.zeros((4, 774, 4), np.int8)))
-    out = {}
+    cases.append(("eep4a_864cu", _encoded_soft(rng, 4, LONG_T)))
+    out = {name: {} for name in REPLACES}
     for name, d_np in cases:
         d = torch.as_tensor(d_np, device=dev)
         B, T = d_np.shape[:2]
+        fused = K.plan(B, T)[0] == "fused"
         dec, err = K.viterbi_acs(d)
         bits = K.chainback(dec)
+        before = dict(K.LAUNCHES)
+        dbits, derr = K.decode(d)
+        took = {k: K.LAUNCHES[k] - before[k] for k in before}
         torch.cuda.synchronize()
+        check(took == {"viterbi_decode_fused": int(fused),
+                       "viterbi_acs": int(not fused),
+                       "viterbi_chainback": int(not fused)},
+              f"decode took the wrong route at {name}: {took}")
+        # the plain versions, timed by the one run that the comparison needs
+        start, mid, end = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(3))
+        start.record()
         pdec, perr = K.viterbi_acs_plain(d)
+        mid.record()
         pbits = K.chainback_plain(pdec)
+        end.record()
         torch.cuda.synchronize()
-        same = (torch.equal(dec, pdec) and torch.equal(err, perr)
-                and torch.equal(bits, pbits))
-        err_acs = int((err.long() - perr.long()).abs().max())
-        err_cb = int((bits.long() - pbits.long()).abs().max())
+        pms_acs, pms_cb = start.elapsed_time(mid), mid.elapsed_time(end)
+        same = {"viterbi_acs": torch.equal(dec, pdec) and torch.equal(err, perr),
+                "viterbi_chainback": torch.equal(bits, pbits),
+                "viterbi_decode_fused": (torch.equal(dbits, pbits)
+                                         and torch.equal(derr, perr))}
         reps = 20 if T * B < 2_000_000 else 5
-        ms_acs = _cuda_ms(lambda: K.viterbi_acs(d), reps)
-        ms_cb = _cuda_ms(lambda: K.chainback(dec), reps)
-        pms_acs = _cuda_ms(lambda: K.viterbi_acs_plain(d), 1)
-        pms_cb = _cuda_ms(lambda: K.chainback_plain(dec), 1)
-        log(f"K1 {name:14s} B={B:5d} T={T:5d} bit-identical={same} "
-            f"acs {ms_acs:.4f} ms (plain {pms_acs:.1f} ms) "
-            f"chainback {ms_cb:.4f} ms (plain {pms_cb:.1f} ms) "
-            f"Mbit/s {B * T / (ms_acs + ms_cb) / 1e3:.2f}")
-        if not same:
-            raise AssertionError(f"K1 disagrees with its plain version at "
-                                 f"{name} (B={B}, T={T})")
-        if name == "msc_group":
-            out["viterbi_acs"] = {"ms": ms_acs, "plain_ms": pms_acs,
-                                  "max_abs_err": err_acs}
-            out["viterbi_chainback"] = {"ms": ms_cb, "plain_ms": pms_cb,
-                                        "max_abs_err": err_cb}
+        ms = {"viterbi_acs": _cuda_ms(lambda: K.viterbi_acs(d), reps),
+              "viterbi_chainback": _cuda_ms(lambda: K.chainback(dec), reps)}
+        # decode() is the fused kernel, or for a long trellis the pair
+        ms["viterbi_decode_fused" if fused else "decode_pair"] = _cuda_ms(
+            lambda: K.decode(d), reps)
+        if name in PLAIN_TIMED:                  # a second, warm plain run
+            pms_acs = _cuda_ms(lambda: K.viterbi_acs_plain(d), 1)
+            pms_cb = _cuda_ms(lambda: K.chainback_plain(dec), 1)
+        plain_ms = {"viterbi_acs": pms_acs, "viterbi_chainback": pms_cb,
+                    "viterbi_decode_fused": pms_acs + pms_cb}
+        errs = {"viterbi_acs": int((err.long() - perr.long()).abs().max()),
+                "viterbi_chainback": int((bits.long() - pbits.long()).abs().max()),
+                "viterbi_decode_fused": max(
+                    int((dbits.long() - pbits.long()).abs().max()),
+                    int((derr.long() - perr.long()).abs().max()))}
+        whole = ms.get("viterbi_decode_fused", ms.get("decode_pair"))
+        log(f"K1 {name:14s} B={B:5d} T={T:5d} route={K.plan(B, T)} "
+            f"bit-identical={all(same.values())} "
+            f"decode {whole:.4f} ms | acs {ms['viterbi_acs']:.4f} ms "
+            f"chainback {ms['viterbi_chainback']:.4f} ms | plain acs "
+            f"{pms_acs:.1f} ms chainback {pms_cb:.1f} ms | "
+            f"Mbit/s {B * T / whole / 1e3:.2f}")
+        for kernel in REPLACES:
+            if not same[kernel]:
+                raise AssertionError(f"{kernel} disagrees with its plain "
+                                     f"version at {name} (B={B}, T={T})")
+            if kernel in ms:
+                b_ms, b_by = bound(kernel, B, T)
+                out[kernel][name] = {
+                    "B": B, "T": T, "ms": ms[kernel],
+                    "plain_ms": plain_ms[kernel], "max_abs_err": errs[kernel],
+                    "bound_ms": b_ms, "bound_by": b_by}
+                log(f"   {kernel:22s} {ms[kernel]:.4f} ms, bound "
+                    f"{b_ms:.6f} ms by {b_by}, share "
+                    f"{100 * b_ms / ms[kernel]:.3f}%")
     return out
 
 
@@ -175,7 +283,7 @@ class _AUSource:
         return aus
 
 
-def make_capture(dev, path):
+def make_capture(dev, path, nb_frames=NB_FRAMES):
     """The 18-service ensemble through the port's transmitter, with CFO and
     AWGN, written as u8 IQ. Returns {service_id: sent AU list}."""
     from dab_radio_tpu_torch.models.transmitter import (
@@ -190,7 +298,7 @@ def make_capture(dev, path):
         sources[s.service_id] = _AUSource(SEED + i)
         tx.set_au_source(s.subchannel_id, sources[s.service_id])
     t0 = time.perf_counter()
-    iq = tx.generate(NB_FRAMES)
+    iq = tx.generate(nb_frames)
     t_tx = time.perf_counter() - t0
     rng = np.random.default_rng(SEED)
     lead = np.zeros(20000, np.complex64)
@@ -205,7 +313,7 @@ def make_capture(dev, path):
     u8 = np.clip(iq.view(np.float32) * 127.5 + 127.5, 0, 255).astype(np.uint8)
     with open(path, "wb") as f:
         f.write(u8.tobytes())
-    log(f"capture: {NB_FRAMES} frames, {NB_SERVICES} services x 48 CU "
+    log(f"capture: {nb_frames} frames, {NB_SERVICES} services x 48 CU "
         f"EEP-3A, CFO {CFO_BINS} carriers, SNR {SNR_DB} dB, "
         f"{os.path.getsize(path)} bytes u8 (transmitter {t_tx:.2f} s)")
     return {sid: src.sent for sid, src in sources.items()}
@@ -222,8 +330,9 @@ def _read_adts(path):
     return aus
 
 
-def _run_capturing_stderr(fn):
-    """Run fn() with file descriptor 2 sent to a file; echo and return it."""
+def _run_capturing_stderr(fn, echo=True):
+    """Run fn() with file descriptor 2 sent to a file; return its text, and
+    echo it unless told not to."""
     path = os.path.join(WORK, "stderr.txt")
     sys.stderr.flush()
     saved = os.dup(2)
@@ -237,7 +346,8 @@ def _run_capturing_stderr(fn):
             os.close(saved)
         f.seek(0)
         text = f.read().decode(errors="replace")
-    sys.stderr.write(text)
+    if echo:
+        sys.stderr.write(text)
     return rc, text
 
 
@@ -294,18 +404,121 @@ def main_path(dev, sent):
               f"service {sid:X}: access units differ from those sent")
         nb_aus += len(got)
 
-    check(by_t.get(774, 0) > 0, "the FIC decode did not run the ACS kernel")
-    check(by_t.get(1542, 0) > 0, "the MSC decode did not run the ACS kernel")
-    check(launches["viterbi_chainback"] > 0, "the chainback kernel never ran")
+    check(by_t.get(774, 0) > 0, "the FIC decode did not run a Viterbi kernel")
+    check(by_t.get(1542, 0) > 0, "the MSC decode did not run a Viterbi kernel")
+    check(launches["viterbi_decode_fused"] == sum(by_t.values()),
+          f"a decode took more than one launch: {launches} for {by_t}")
+    check(launches["viterbi_acs"] == 0 and launches["viterbi_chainback"] == 0,
+          f"the kernel pair ran on the main path: {launches}")
     air = frames * 0.096
     log(f"main path: frames={frames} wall={wall:.3f} s air={air:.3f} s "
         f"real-time factor={air / wall:.3f} access_units={nb_aus} "
-        f"(all byte-exact) acs launches by T={by_t} "
-        f"chainback launches={launches['viterbi_chainback']}")
+        f"(all byte-exact) launches={launches} by T={by_t}")
     return launches
 
 
+def long_path(dev):
+    """One 864-CU EEP 4-A subchannel, MSCEncoder -> noise -> MSCDecoder on
+    the card: the trellis of 41,478 steps takes the forward and chainback
+    kernel pair. Returns the launch counts of this path."""
+    import torch
+    from dab_radio_tpu_torch.dab.msc import MSCDecoder, MSCEncoder
+    from dab_radio_tpu_torch.kernels import viterbi_acs as K
+    from dab_radio_tpu_torch.params import SubchannelConfig
+    cfg = SubchannelConfig(0, LONG_CU, False, eep_type="A", eep_prot_level=3)
+    enc, dec = MSCEncoder(cfg), MSCDecoder(cfg, dev)
+    check(dec.spec.nb_steps == LONG_T, f"trellis of {dec.spec.nb_steps} steps")
+    rng = np.random.default_rng(SEED + 1)
+    sent, got = [], []
+    K.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(LONG_FRAMES):
+        cifs = np.empty((4, cfg.nb_cif_bits), np.int8)
+        for k in range(4):
+            sent.append(rng.integers(0, 256, enc.nb_data_bytes)
+                        .astype(np.uint8).tobytes())
+            cifs[k] = enc.encode_cif(sent[-1])
+        noisy = cifs + rng.normal(0.0, LONG_NOISE_STD, cifs.shape)
+        got += dec.decode_frame(np.clip(np.round(noisy), -127, 127)
+                                .astype(np.int8))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    by_t = dict(K.ACS_LAUNCHES_BY_T)
+    nb_fill = 15                      # CIFs before the deinterleaver is full
+    check(got[:nb_fill] == [None] * nb_fill, "output before the fill")
+    decoded = got[nb_fill:]
+    check(len(decoded) == 4 * LONG_FRAMES - nb_fill and
+          decoded == sent[:len(decoded)],
+          "long-trellis payloads differ from those sent")
+    check(by_t == {LONG_T: LONG_FRAMES}, f"forward passes by T: {by_t}")
+    check(launches == {"viterbi_decode_fused": 0, "viterbi_acs": LONG_FRAMES,
+                       "viterbi_chainback": LONG_FRAMES},
+          f"the long trellis did not take the kernel pair: {launches}")
+    log(f"long path: {LONG_CU} CU EEP 4-A, T={LONG_T}, {len(decoded)} CIFs of "
+        f"{enc.nb_data_bytes} bytes byte-exact, noise std {LONG_NOISE_STD}, "
+        f"wall={wall:.3f} s (encoder included) launches={launches}")
+    return launches
+
+
+def measure(dev, nb_frames):
+    """Times of the main path on nb_frames frames: see the module docstring."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dab_radio_tpu_torch.apps import radio_cli
+    from dab_radio_tpu_torch.kernels import viterbi_acs as K
+    from dab_radio_tpu_torch.utils.profiler import get_profiler
+    path = os.path.join(WORK, f"capture_{nb_frames}.u8")
+    make_capture(dev, path, nb_frames)
+    argv = ["-i", path, "-F", "u8", "--benchmark", "--backend", "cuda"]
+    air = nb_frames * 0.096
+
+    def run():
+        t0 = time.perf_counter()
+        rc, text = _run_capturing_stderr(lambda: radio_cli.main(argv), echo=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(rc == 0 and f"frames_read={nb_frames} desync=0" in text
+              and "rs_err=0 au_err=0" in text, "the decode failed")
+        return wall
+
+    out = {"frames": nb_frames, "air_s": air, "device": torch.cuda.get_device_name(0)}
+    K.reset_launches()
+    out["first_wall_s"] = run()
+    out["launches_per_run"] = dict(K.LAUNCHES)
+    out["steady_wall_s"] = [run() for _ in range(5)]
+    out["steady_rtf"] = [air / w for w in out["steady_wall_s"]]
+    prof = get_profiler()
+    prof.reset()
+    prof.enabled = True
+    out["spans_wall_s"] = run()
+    prof.enabled = False
+    out["spans"] = prof.table()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
+        out["profiled_wall_s"] = run()
+    rows = [e for e in tp.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+    total_us = sum(dev_us(e) for e in rows)
+    out["device_time_ms"] = total_us / 1e3
+    out["device_busy_share"] = total_us / 1e6 / out["profiled_wall_s"]
+    rows.sort(key=dev_us, reverse=True)
+    out["kernels"] = [{"name": e.key[:80], "calls": e.count,
+                       "ms": dev_us(e) / 1e3} for e in rows[:12]]
+    for k, v in out.items():
+        log(f"measure: {k} = {json.dumps(v)}")
+    with open(os.path.join(WORK, "measure.json"), "w") as f:
+        json.dump(out, f, indent=1)
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--measure", action="store_true",
+                    help="time the main path instead of checking it")
+    ap.add_argument("--frames", type=int, default=50,
+                    help="frames of the --measure capture")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -315,19 +528,34 @@ def main():
     dev = torch.device("cuda", 0)
     card_line()
     build_kernels()
+    if args.measure:
+        measure(dev, args.frames)
+        return 0
     timings = check_kernels(dev)
     sent = make_capture(dev, os.path.join(WORK, "capture.u8"))
-    launches = main_path(dev, sent)
+    # each path's counts were set to 0 just before it and read just after
+    launches = {"main": main_path(dev, sent), "long": long_path(dev)}
+    from dab_radio_tpu_torch.host.native import native_status
+    log("host native libraries: " + ", ".join(
+        f"{k}={v}" for k, v in native_status().items()))
     check("jax" not in sys.modules, "the port loaded jax")
+    check(not any(m == "dab_radio_tpu" or m.startswith("dab_radio_tpu.")
+                  for m in sys.modules), "the port loaded the JAX package")
     kernels = []
-    for name in ("viterbi_acs", "viterbi_chainback"):
-        t = timings[name]
+    for name in REPLACES:
+        t = timings[name][REPORT_SHAPE[name]]
+        path = KERNEL_PATH[name]
+        check(launches[path][name] > 0,
+              f"{name} was never launched on the {path} path")
         kernels.append({
             "name": name, "route": "cuda",
             "source": "dab_radio_tpu_torch/csrc/viterbi_acs.cu",
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "path": path,
+            "launches": launches[path][name],
             "max_abs_err": t["max_abs_err"], "matches_plain": True,
-            "ms": t["ms"], "plain_ms": t["plain_ms"]})
+            "shape": [t["B"], t["T"]], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,10 +19,10 @@ import time
 
 import numpy as np
 
-from dab_radio_tpu.host.native import IQ_FORMATS
-from dab_radio_tpu.host.io import IQReader
-from dab_radio_tpu.dab.database import STREAM_AUDIO
-from dab_radio_tpu.params.tables import (country_label, language_label,
+from ..host.native import IQ_FORMATS
+from ..host.io import IQReader
+from ..dab.database import STREAM_AUDIO
+from ..params.tables import (country_label, language_label,
                                          programme_type_label)
 from ..models.demodulator import OFDMDemodulator, StreamingDemodulator
 from ..models.receiver import DabReceiver
@@ -136,7 +136,7 @@ def main(argv=None):
 
     scraper = None
     if args.scraper_enable and rx is not None:
-        from dab_radio_tpu.host.scraper import Scraper
+        from ..host.scraper import Scraper
         scraper = Scraper(args.scraper_output)
         scraper.attach(rx)
     if args.audio_decode and rx is not None:

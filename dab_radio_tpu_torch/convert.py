@@ -1,4 +1,6 @@
-"""Carry decode state from the JAX package into this one.
+"""Carry decode state and configuration objects from the JAX package into
+this one. Nothing of that package is imported here: its objects come in as
+they are, or as their field dicts, and are read by attribute or key.
 
 The JAX package's checkpoints are plain dicts of numpy arrays; these
 functions normalise them to the port's checkpoint form, which is also numpy,
@@ -10,7 +12,11 @@ so either package can resume where the other stopped:
   dec.__setstate__(msc_state_from_jax(jax_dec.__getstate__(), dev))
 """
 
+import dataclasses
+
 import numpy as np
+
+from .params import SubchannelConfig
 
 _CARRY_NP = (np.float32, np.float32, np.bool_, np.float32, np.int32, np.int32)
 
@@ -25,10 +31,27 @@ def demod_state_from_jax(snap: dict) -> dict:
             "l1": float(snap["l1"])}
 
 
+def _own(cls, obj):
+    """An instance of the port's dataclass ``cls`` with the fields of
+    ``obj``: an object with those attributes, or a dict with those keys."""
+    if isinstance(obj, cls):
+        return obj
+    get = obj.__getitem__ if isinstance(obj, dict) else \
+        lambda name: getattr(obj, name)
+    return cls(**{f.name: get(f.name) for f in dataclasses.fields(cls)})
+
+
+def subchannel_config_from_jax(cfg) -> SubchannelConfig:
+    """``dab_radio_tpu.params.SubchannelConfig`` (the object, or its field
+    dict) -> the port's SubchannelConfig."""
+    return _own(SubchannelConfig, cfg)
+
+
 def msc_state_from_jax(state: dict, device="cpu") -> dict:
     """``dab_radio_tpu`` MSCDecoder.__getstate__() -> the port's
-    MSCDecoder.__setstate__() input: subchannel config, fill count and the
-    (16, nb_bits) int8 deinterleaver history."""
-    return {"cfg": state["cfg"], "nb_pushed": int(state["nb_pushed"]),
+    MSCDecoder.__setstate__() input: the port's subchannel config, fill
+    count and the (16, nb_bits) int8 deinterleaver history."""
+    return {"cfg": subchannel_config_from_jax(state["cfg"]),
+            "nb_pushed": int(state["nb_pushed"]),
             "history": np.asarray(state["history"], np.int8),
             "device": str(device)}

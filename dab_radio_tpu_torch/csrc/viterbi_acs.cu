@@ -1,147 +1,380 @@
-// Viterbi add-compare-select and chainback for the DAB K=7, rate-1/4
-// mother code (generators 133, 171, 145, 133 octal), on NVIDIA Hopper.
+// Viterbi decode of the DAB K=7, rate-1/4 mother code (generators 133, 171,
+// 145, 133 octal) on NVIDIA Hopper: add-compare-select forward pass and
+// chainback, as one kernel for trellises whose decisions fit in shared
+// memory and as a pair of kernels for longer ones.
 //
 // Replaces the Pallas TPU kernel dab_radio_tpu/ops/viterbi_pallas.py
 // (_acs_kernel, driven by viterbi_decode_pallas) and the lax.scan chainback
 // around it, with the results of ops/viterbi.py:viterbi_decode_soft_radix4:
 // the same decoded bits, ties included, and the path error.
 //
-// What bounds it: the trellis recursion is sequential in T (each step needs
-// the previous step's 64 metrics), and the work per step is tiny (64
-// compare-selects, 4 soft symbols in, 8 bytes of decisions out). So one
-// message is latency-bound on the chain of dependent ACS steps, and the card
-// fills only through many messages in flight; at the 72-message MSC group of
-// a full ensemble most SMs idle. Bytes are not the limit: 4 bytes in and 8
-// bytes out per message step.
+// What bounds it on this card. Per message and trellis step the function
+// reads 4 bytes and writes 1, and needs about 300 int32 operations (64 new
+// states times two adds, a compare and a select). With the card full of
+// messages the int32 rate is the bound; bytes never are. With few messages
+// (4 for a FIC decode, 72 for an MSC group) the card is nearly empty and
+// the time is T times what one warp needs for a step: the dependent chain
+// of add, min and shuffle, or the dispatch of the step's instructions by a
+// warp that has its scheduler to itself, whichever is longer. A step
+// written plainly is about 35 instructions and their dispatch is the
+// longer; the design below counts instructions as well as chain links, and
+// ends at about 17 instructions and a chain of about 47 cycles a step.
 //
-// Design: one warp per message, any number of messages. Lane j owns new
-// states j and 32+j; both read predecessors 2j and 2j+1, which arrive from
-// the owning lanes' registers through __shfl_sync, so the metrics never
-// leave registers and there is no shared memory and no __syncthreads.
+// What the design does about it.
+//  * One warp per message. Lane L keeps the metrics of the predecessor pair
+//    (2L, 2L+1) in registers and computes both butterflies from them: new
+//    states L and L+32. All four generators tap the oldest and the newest
+//    register bit, so the four branch metrics of a butterfly are +m, -m,
+//    -m, +m for one m per lane: a single __dp4a of the step's symbol word
+//    with the lane's packed signs, off the metric chain.
+//  * The exchange after a step is two shuffles, not four. Even lanes send
+//    new state L in the first shuffle and L+32 in the second, odd lanes the
+//    other way round; the upper half of the warp keeps its pair swapped
+//    (odd predecessor first). Both are sign flips of m and cost nothing on
+//    the chain, which is: add, min, shuffle.
+//  * A decision costs one compare and one ballot. The ballots take the raw
+//    predicate "second candidate < first candidate + h" with h = 1 in the
+//    upper half, where the first candidate is the odd predecessor's and must
+//    win only when strictly less. The raw words are turned into the layout
+//    of the chainback (bit s of 64 = new state s came from its odd
+//    predecessor) by four bitwise operations a step on the whole word, not
+//    by selects in every lane: in the fused kernel in one pass after the
+//    last step, in the forward kernel before each store.
+//  * Symbols are staged through shared memory by cp.async, in chunks of 256
+//    steps in a ring of four, two chunks ahead of the recursion; the
+//    recursion reads them 16 bytes (4 steps) at a time, 4 to 8 steps ahead
+//    of their use. Device-memory latency never sits between two steps.
+//  * Fused kernel: the decision words go to shared memory, 8 bytes a step,
+//    and the chainback runs in the same kernel right after the last step,
+//    reading 8 words ahead of its chain of select, shift, mask and or. It
+//    walks 32 segments of the trellis at once, one a lane, each from a
+//    guessed entry state that is then checked against the segment above
+//    and walked again if wrong, so the bits are exact. The bits leave
+//    through shared memory in coalesced stores. One launch, no decision
+//    traffic to device memory.
+//  * Above 25,372 steps the decisions no longer fit in the 227 KB of a
+//    block. The forward kernel then writes them to device memory, each
+//    message's words in a row of its own (a store every step to a (T, B)
+//    layout cost more than the whole recursion), and the chainback kernel
+//    walks each row with one warp in the same 32 segments, reading 32 steps
+//    ahead.
+//  * Several messages per block when there are more messages than SMs, so
+//    that every SM's shared memory is filled in one wave; the caller picks
+//    the count.
+//
 // Metrics are int32 for the whole message with no rebasing: a step moves a
-// metric by at most 508, so they stay below ~4.7e6 + 5080 for T = 9222.
-// The branch metric is the sign correlation -sum_r e_r d_r, computed per
-// step from the 4 depunctured soft symbols and each lane's expected signs,
-// which it derives at entry from the generator polynomials in __constant__
-// memory. sum_r |d_r - 127 e_r| = 508 - sum_r e_r d_r for |d_r| <= 127, so
-// the minimum and its ties are the same, and the path error adds T * 508
-// back. A tie goes to the even predecessor: the odd one wins only on a
-// strict '<'. Decisions are packed 64 bits a step with two __ballot_sync
-// (states 0-31, then 32-63), 8 bytes per step per message, written by lane
-// 0 in a (T, B) layout that the chainback reads coalesced across messages.
-// Chainback is one thread per message, walking from state 0 backwards.
+// metric by at most 512, so they stay far below 2^31 for any T that fits a
+// tensor. The branch metric is the sign correlation -sum_r e_r d_r;
+// sum_r |d_r - 127 e_r| = 508 - sum_r e_r d_r for |d_r| <= 127, so the
+// minimum and its ties are the same, and the path error adds T * 508 back.
+// A tie goes to the even predecessor: the odd one wins only on a strict '<'.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
-constexpr int kChainbackThreads = 128;
 constexpr int kInitialNonStart = 5 * 4 * 254;   // metric of non-start states
 constexpr int kStepErrOffset = 4 * 127;          // 508 per trellis step
 constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kChunkWords = 256;                 // steps per cp.async chunk
+constexpr int kRingWords = 4 * kChunkWords;      // staged symbol words
+constexpr int kRingBytes = 4 * kRingWords;
+constexpr int kMaxWarpsPerBlock = 16;
+constexpr int kMaxDynamicSmem = 232448;          // 227 KB a block on sm_90
+constexpr int kWarmup = 96;                      // steps of a chainback guess
+constexpr int kChainbackWarps = 4;
 
-__constant__ int c_polys[4] = {0133, 0171, 0145, 0133};
+constexpr int kPoly0 = 0133, kPoly1 = 0171, kPoly2 = 0145, kPoly3 = 0133;
+// every generator taps register bit 0 (oldest) and bit 6 (newest input):
+// the butterfly's branch metrics are then +m, -m, -m, +m
+static_assert((kPoly0 & kPoly1 & kPoly2 & kPoly3 & 0101) == 0101,
+              "butterfly symmetry needs taps at bits 0 and 6");
 
-// Expected sign (+1/-1) of code bit r for the transition from `state` with
-// input `bit`: parity of the register [bit, s5..s0] under polynomial r.
-__device__ __forceinline__ int expected_sign(int state, int bit, int r) {
-  const int reg = (bit << 6) | state;
-  return 2 * (__popc(reg & c_polys[r]) & 1) - 1;
+// The lane's packed int8 signs c_r such that dp4a(symbols, c) is the branch
+// metric m of the lane: -e_r(2*lane, input 0), negated once for an odd lane
+// and once for a lane of the upper half (see acs_step).
+__device__ __forceinline__ int lane_signs(int lane) {
+  const int polys[4] = {kPoly0, kPoly1, kPoly2, kPoly3};
+  const int flip = ((lane >> 4) ^ lane) & 1;
+  unsigned packed = 0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int e = 2 * (__popc((2 * lane) & polys[r]) & 1) - 1;
+    const int c = flip ? e : -e;
+    packed |= (unsigned)(c & 0xff) << (8 * r);
+  }
+  return (int)packed;
 }
 
-// d: (B, T, 4) int8 depunctured soft symbols. dec: (T, B) packed decisions,
-// bit s = 1 when new state s came from its odd predecessor. err: (B,) path
-// error pm[0] + T * 508.
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-acs_forward(const int8_t* __restrict__ d, unsigned long long* __restrict__ dec,
-            int32_t* __restrict__ err, int B, int T) {
+// One trellis step of a warp. Lane L < 16 holds x = pm[2L], y = pm[2L+1];
+// lane L >= 16 holds them swapped and has upper = 1. m is the lane's branch
+// metric with the sign flips of lane_signs. w1, w2: the raw decision words
+// (see canonical_decisions).
+__device__ __forceinline__ void acs_step(int& x, int& y, int m, int upper,
+                                         int src_a, int src_b, unsigned& w1,
+                                         unsigned& w2) {
+  const int a1 = x + m, b1 = y - m;
+  const int a2 = x - m, b2 = y + m;
+  const int v1 = min(a1, b1);   // even lane: new state L, odd lane: L + 32
+  const int v2 = min(a2, b2);   // even lane: new state L + 32, odd lane: L
+  x = __shfl_sync(kFullMask, v1, src_a);
+  y = __shfl_sync(kFullMask, v2, src_b);
+  w1 = __ballot_sync(kFullMask, b1 < a1 + upper);
+  w2 = __ballot_sync(kFullMask, b2 < a2 + upper);
+}
+
+// Raw decision words of acs_step -> lo, hi: bit s of the 64 is 1 when new
+// state s came from its odd predecessor. In the upper half the raw bit is
+// "the odd predecessor did not win", hence the flip; an odd lane's first
+// candidate pair belongs to state L + 32, hence the swap of the odd bits.
+__device__ __forceinline__ uint2 canonical_decisions(unsigned w1, unsigned w2) {
+  constexpr unsigned kEven = 0x55555555u, kUpper = 0xffff0000u;
+  return make_uint2(((w1 & kEven) | (w2 & ~kEven)) ^ kUpper,
+                    ((w2 & kEven) | (w1 & ~kEven)) ^ kUpper);
+}
+
+// One chainback step: the state before step t from the state after it and
+// the step's decision words.
+__device__ __forceinline__ int chain_step(int s, unsigned lo, unsigned hi) {
+  const unsigned sel = (s & 32) ? hi : lo;
+  return ((s << 1) & 63) | (int)((sel >> (s & 31)) & 1u);
+}
+
+// Chainback of one message by one warp, from state 0 at step T, 32 segments
+// at once. dec: the message's T decision words (.x = states 0-31). out: its
+// T decoded bits. Lane l walks segment [lo, hi). The state it enters with
+// is the exit state of the segment above, which is not known yet: the lane
+// starts kWarmup steps higher from state 0 (survivor paths merge within a
+// few constraint lengths) and takes what it arrives with as its entry
+// state. That is a guess, so it is checked: a segment whose entry state
+// differs from the exit state of the segment above is walked again from the
+// right state, highest first, until none differs. The top segment starts at
+// step T in state 0, which is exact, so every repaired chain is. Decision
+// words are read kBlock steps ahead of the chain.
+template <int kBlock, typename Out>
+__device__ __forceinline__ void chainback_warp(const uint2* dec, Out* out,
+                                               int T, int lane) {
+  const int seg = ((T + 31) / 32) | 1;  // odd: rows in shared memory hit all banks
+  const int nb_segs = (T + seg - 1) / seg;
+  const int lo = min(lane * seg, T), hi = min(lo + seg, T);
+  auto walk = [&](int s, int from, int to, bool keep) {
+    int t = from;
+    for (; t - kBlock >= to; t -= kBlock) {
+      uint2 w[kBlock];
+#pragma unroll
+      for (int i = 0; i < kBlock; ++i) w[i] = dec[t - kBlock + i];
+#pragma unroll
+      for (int i = kBlock - 1; i >= 0; --i) {
+        if (keep) out[t - kBlock + i] = (Out)(s >> 5);
+        s = chain_step(s, w[i].x, w[i].y);
+      }
+    }
+    for (; t > to; --t) {
+      const uint2 w = dec[t - 1];
+      if (keep) out[t - 1] = (Out)(s >> 5);
+      s = chain_step(s, w.x, w.y);
+    }
+    return s;
+  };
+  int entry = walk(0, min(T, hi + kWarmup), hi, false);
+  int leave = walk(entry, hi, lo, true);
+  for (;;) {
+    const int above = __shfl_down_sync(kFullMask, leave, 1);
+    const unsigned wrong =
+        __ballot_sync(kFullMask, lane + 1 < nb_segs && entry != above);
+    if (!wrong) break;
+    if (lane == 31 - __clz(wrong)) {
+      entry = above;
+      leave = walk(entry, hi, lo, true);
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async_4(void* smem_dst, const void* src) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src)
+               : "memory");
+}
+
+// Forward pass of one message per warp; with kFused the chainback too.
+//
+// d: (B, T, 4) int8 depunctured soft symbols, 4-byte aligned. err: (B,)
+// path error pm[0] + T * 508. kFused: bits (B, T) int8, the input bit of
+// every step on the survivor path that ends in state 0; decisions stay in
+// shared memory. Otherwise dec: (B, T) decision words of 64 bits.
+//
+// Shared memory of a warp, smem_per_msg bytes (a multiple of 16): the ring
+// of kRingWords symbol words (step t at word t mod kRingWords), then for
+// kFused T decision words of 8 bytes and T bytes of decoded bits.
+template <bool kFused>
+__global__ void __launch_bounds__(32 * kMaxWarpsPerBlock)
+viterbi_forward(const int8_t* __restrict__ d,
+                unsigned long long* __restrict__ dec,
+                int8_t* __restrict__ bits, int32_t* __restrict__ err, int B,
+                int T, int smem_per_msg) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= B) return;  // the whole warp leaves together
 
-  // the lane's expected signs: e[p][bit][r] for predecessor 2*lane + p
-  int e[2][2][4];
-#pragma unroll
-  for (int p = 0; p < 2; ++p)
-#pragma unroll
-    for (int bit = 0; bit < 2; ++bit)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        e[p][bit][r] = expected_sign(2 * lane + p, bit, r);
+  unsigned char* region = smem + (size_t)warp * smem_per_msg;
+  int* ring = reinterpret_cast<int*>(region);
+  const int4* ring4 = reinterpret_cast<const int4*>(region);
+  uint2* dec_s = reinterpret_cast<uint2*>(region + kRingBytes);
+  unsigned char* bits_s = region + kRingBytes + 8 * (size_t)T;
+  const int* sym = reinterpret_cast<const int*>(d) + (size_t)b * T;
+  unsigned long long* dec_row = dec + (size_t)b * T;
+  const int nb_chunks = (T + kChunkWords - 1) / kChunkWords;
 
-  int pm_lo = lane == 0 ? 0 : kInitialNonStart;  // state lane
-  int pm_hi = kInitialNonStart;                  // state 32 + lane
-  const int src = (2 * lane) & 31;               // lane holding state 2*lane
-  const bool low_half = lane < 16;
-  const int* sym = reinterpret_cast<const int*>(d + (size_t)b * T * 4);
-
-#pragma unroll 4
-  for (int t = 0; t < T; ++t) {
-    const int w = __ldg(sym + t);
-    int s[4];
+  auto stage_chunk = [&](int c) {
+    if (c < nb_chunks) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) s[r] = (int)(int8_t)((w >> (8 * r)) & 0xff);
+      for (int j = 0; j < kChunkWords / 32; ++j) {
+        const int w = kChunkWords * c + 32 * j + lane;
+        if (w < T) cp_async_4(ring + (w & (kRingWords - 1)), sym + w);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
 
-    const int a_lo = __shfl_sync(kFullMask, pm_lo, src);
-    const int a_hi = __shfl_sync(kFullMask, pm_hi, src);
-    const int b_lo = __shfl_sync(kFullMask, pm_lo, src + 1);
-    const int b_hi = __shfl_sync(kFullMask, pm_hi, src + 1);
-    const int pm_even = low_half ? a_lo : a_hi;  // state 2*lane
-    const int pm_odd = low_half ? b_lo : b_hi;   // state 2*lane + 1
+  const int signs = lane_signs(lane);
+  const int upper = lane >> 4;
+  const int src_a = upper ? 2 * lane - 31 : 2 * lane;
+  const int src_b = upper ? 2 * lane - 32 : 2 * lane + 1;
+  int x = lane == 0 ? 0 : kInitialNonStart;
+  int y = kInitialNonStart;
 
-    int bm[2][2];
+  auto step = [&](int t, int word) {
+    unsigned w1, w2;
+    acs_step(x, y, __dp4a(word, signs, 0), upper, src_a, src_b, w1, w2);
+    if (lane == 0) {
+      if constexpr (kFused) {
+        dec_s[t] = make_uint2(w1, w2);  // made canonical after the last step
+      } else {
+        const uint2 c = canonical_decisions(w1, w2);
+        dec_row[t] = ((unsigned long long)c.y << 32) | c.x;
+      }
+    }
+  };
+
+  stage_chunk(0);
+  stage_chunk(1);
+  int t = 0;
+  int4 q0, q1;  // symbol words of steps t .. t + 3 and t + 4 .. t + 7
+  for (int c = 0; c < nb_chunks; ++c) {
+    stage_chunk(c + 2);
+    // all but the newest group have landed: chunks c and c + 1 are readable
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncwarp();
+    if (c == 0) {
+      q0 = ring4[0];
+      q1 = ring4[1];
+    }
+    // 16 steps at a time, to the end of the chunk; the refills read up to
+    // 8 steps past it, into chunk c + 1
+    const int chunk_end = min(T, kChunkWords * (c + 1));
+    for (; t + 16 <= chunk_end; t += 16) {
 #pragma unroll
-    for (int p = 0; p < 2; ++p)
-#pragma unroll
-      for (int bit = 0; bit < 2; ++bit)
-        bm[p][bit] = -(e[p][bit][0] * s[0] + e[p][bit][1] * s[1] +
-                       e[p][bit][2] * s[2] + e[p][bit][3] * s[3]);
-
-    const int c0e = pm_even + bm[0][0], c0o = pm_odd + bm[1][0];
-    const int c1e = pm_even + bm[0][1], c1o = pm_odd + bm[1][1];
-    const bool odd0 = c0o < c0e;  // tie -> even predecessor
-    const bool odd1 = c1o < c1e;
-    pm_lo = odd0 ? c0o : c0e;
-    pm_hi = odd1 ? c1o : c1e;
-    const unsigned lo = __ballot_sync(kFullMask, odd0);
-    const unsigned hi = __ballot_sync(kFullMask, odd1);
-    if (lane == 0)
-      dec[(size_t)t * B + b] = ((unsigned long long)hi << 32) | lo;
+      for (int g = 0; g < 4; ++g) {
+        const int4 cur = (g & 1) ? q1 : q0;
+        const int4 ahead = ring4[((t >> 2) + g + 2) & (kRingWords / 4 - 1)];
+        if (g & 1) q1 = ahead; else q0 = ahead;
+        step(t + 4 * g, cur.x);
+        step(t + 4 * g + 1, cur.y);
+        step(t + 4 * g + 2, cur.z);
+        step(t + 4 * g + 3, cur.w);
+      }
+    }
   }
-  if (lane == 0) err[b] = pm_lo + T * kStepErrOffset;
+  for (; t < T; ++t) step(t, ring[t & (kRingWords - 1)]);  // fewer than 16
+  if (lane == 0) err[b] = x + T * kStepErrOffset;  // lane 0's x is pm[0]
+  if constexpr (!kFused) return;
+
+  __syncwarp();
+  for (int i = lane; i < T; i += 32)
+    dec_s[i] = canonical_decisions(dec_s[i].x, dec_s[i].y);
+  __syncwarp();
+  chainback_warp<8>(dec_s, bits_s, T, lane);
+  __syncwarp();
+  int8_t* out = bits + (size_t)b * T;
+  for (int i = lane; i < T; i += 32) out[i] = (int8_t)bits_s[i];
 }
 
-// dec: (T, B) packed decisions. bits: (B, T) int8, the input bit of every
-// trellis step on the survivor path that ends in state 0.
-__global__ void chainback(const unsigned long long* __restrict__ dec,
-                          int8_t* __restrict__ bits, int B, int T) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  int state = 0;
-  int8_t* out = bits + (size_t)b * T;
-  for (int t = T - 1; t >= 0; --t) {
-    const unsigned long long w = dec[(size_t)t * B + b];
-    out[t] = (int8_t)(state >> 5);
-    state = ((state & 31) << 1) | (int)((w >> state) & 1ull);
+// dec: (B, T) decision words. bits: (B, T) int8. One warp per message.
+__global__ void __launch_bounds__(32 * kChainbackWarps)
+chainback(const unsigned long long* __restrict__ dec, int8_t* __restrict__ bits,
+          int B, int T) {
+  const int b = blockIdx.x * kChainbackWarps + (threadIdx.x >> 5);
+  if (b >= B) return;  // the whole warp leaves together
+  chainback_warp<32>(reinterpret_cast<const uint2*>(dec + (size_t)b * T),
+                     bits + (size_t)b * T, T, threadIdx.x & 31);
+}
+
+// Shared memory one message needs in the fused kernel; more than a block's
+// budget, without overflow, for any T that cannot fit.
+int fused_smem_needed(int T) {
+  if (T > kMaxDynamicSmem / 8) return kMaxDynamicSmem + 1;
+  return kRingBytes + (8 * T + (T + 7) / 8 * 8 + 15) / 16 * 16;
+}
+
+template <bool kFused>
+int launch_forward(const void* d, void* dec, void* bits, void* err, int B,
+                   int T, int msgs_per_block, int smem_per_msg,
+                   cudaStream_t stream) {
+  const int needed = kFused ? fused_smem_needed(T) : kRingBytes;
+  const long long smem = (long long)msgs_per_block * smem_per_msg;
+  if (msgs_per_block < 1 || msgs_per_block > kMaxWarpsPerBlock ||
+      smem_per_msg < needed || smem_per_msg % 16 || smem > kMaxDynamicSmem ||
+      reinterpret_cast<uintptr_t>(d) % 4)
+    return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        viterbi_forward<kFused>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxDynamicSmem);
+    if (rc != cudaSuccess) return (int)rc;
   }
+  const int blocks = (B + msgs_per_block - 1) / msgs_per_block;
+  viterbi_forward<kFused><<<blocks, 32 * msgs_per_block, (size_t)smem, stream>>>(
+      (const int8_t*)d, (unsigned long long*)dec, (int8_t*)bits, (int32_t*)err,
+      B, T, smem_per_msg);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int viterbi_acs_forward(const void* d, void* dec, void* err, int B,
-                                   int T, void* stream) {
-  const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  acs_forward<<<blocks, 32 * kWarpsPerBlock, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)d, (unsigned long long*)dec, (int32_t*)err, B, T);
-  return (int)cudaGetLastError();
+// What the wrapper's launch plan must agree with: the symbol ring's bytes,
+// the warps and the dynamic shared memory a block may have.
+extern "C" void viterbi_limits(int* out) {
+  out[0] = kRingBytes;
+  out[1] = kMaxWarpsPerBlock;
+  out[2] = kMaxDynamicSmem;
 }
 
+// Shared memory one message of T steps needs in the fused kernel.
+extern "C" int viterbi_fused_smem_needed(int T) { return fused_smem_needed(T); }
+
+// Whole decode in one launch: d (B, T, 4) int8 -> bits (B, T) int8, err (B,).
+extern "C" int viterbi_decode_fused(const void* d, void* bits, void* err, int B,
+                                    int T, int msgs_per_block,
+                                    int smem_per_msg, void* stream) {
+  return launch_forward<true>(d, nullptr, bits, err, B, T, msgs_per_block,
+                              smem_per_msg, (cudaStream_t)stream);
+}
+
+// Forward pass alone: d (B, T, 4) int8 -> dec (B, T) uint64, err (B,).
+extern "C" int viterbi_acs_forward(const void* d, void* dec, void* err, int B,
+                                   int T, int msgs_per_block, void* stream) {
+  return launch_forward<false>(d, dec, nullptr, err, B, T, msgs_per_block,
+                               kRingBytes, (cudaStream_t)stream);
+}
+
+// Chainback alone: dec (B, T) uint64 -> bits (B, T) int8.
 extern "C" int viterbi_chainback(const void* dec, void* bits, int B, int T,
                                  void* stream) {
-  const int blocks = (B + kChainbackThreads - 1) / kChainbackThreads;
-  chainback<<<blocks, kChainbackThreads, 0, (cudaStream_t)stream>>>(
+  const int blocks = (B + kChainbackWarps - 1) / kChainbackWarps;
+  chainback<<<blocks, 32 * kChainbackWarps, 0, (cudaStream_t)stream>>>(
       (const unsigned long long*)dec, (int8_t*)bits, B, T);
   return (int)cudaGetLastError();
 }

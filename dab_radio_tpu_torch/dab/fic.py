@@ -14,10 +14,10 @@ import functools
 import numpy as np
 import torch
 
-from dab_radio_tpu.ops.scrambler import prbs_bytes
-from dab_radio_tpu.ops.crc import crc16, crc16_check
-from dab_radio_tpu.params import fic_puncture_schedule, get_dab_params
-from dab_radio_tpu.params.puncture import build_puncture_mask
+from ..ops.scrambler import prbs_bytes
+from ..ops.crc import crc16, crc16_check
+from ..params import fic_puncture_schedule, get_dab_params
+from ..params.puncture import build_puncture_mask
 from ..ops import viterbi as vit
 from ..utils.backend import to_device
 

@@ -16,9 +16,9 @@ import functools
 import numpy as np
 import torch
 
-from dab_radio_tpu.ops.scrambler import prbs_bytes
-from dab_radio_tpu.params import msc_puncture_schedule, SubchannelConfig
-from dab_radio_tpu.params.puncture import build_puncture_mask
+from ..ops.scrambler import prbs_bytes
+from ..params import msc_puncture_schedule, SubchannelConfig
+from ..params.puncture import build_puncture_mask
 from ..ops import viterbi as vit
 from ..utils.backend import to_device
 from ..ops.deinterleave import (make_gather_index, deinterleave_push,

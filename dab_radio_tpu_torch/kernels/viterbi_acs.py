@@ -1,5 +1,5 @@
-"""Viterbi ACS forward pass and chainback: CUDA kernels and their plain
-PyTorch versions (kernel K1, ``csrc/viterbi_acs.cu``).
+"""Viterbi decode, kernel K1 (``csrc/viterbi_acs.cu``): the CUDA kernels, their
+plain PyTorch versions, and the wrapper that picks between the kernels.
 
 Replaces the Pallas TPU kernel ``dab_radio_tpu/ops/viterbi_pallas.py``
 (``_acs_kernel``) and its ``lax.scan`` chainback, and gives the results of
@@ -8,10 +8,18 @@ radix-2 add-compare-select over the 64 states of the K=7 trellis, a tie
 going to the even predecessor, int32 metrics with no rebasing, and the path
 error pm[0] + T * 508.
 
+Three kernels:
+  viterbi_decode_fused  forward pass and chainback in one launch, decisions
+                        in shared memory (``decode`` for T <= MAX_FUSED_T)
+  viterbi_acs           forward pass writing decisions to device memory
+  viterbi_chainback     chainback reading them (``decode`` for longer T)
+
 Layouts shared by the kernels and the plain versions:
   d:    (B, T, 4) int8 depunctured soft symbols (0 where punctured)
   dec:  (T, B) int64, bit s set when new state s came from its odd
-        predecessor 2*(s & 31) + 1: 64 decision bits per step and message
+        predecessor 2*(s & 31) + 1: 64 decision bits per step and message.
+        On the card each message's words lie together: the kernels' dec is
+        the transposed view of a contiguous (B, T) tensor
   err:  (B,) int32 path error of the survivor ending in state 0
   bits: (B, T) int8 decoded input bits, tail included
 
@@ -36,9 +44,17 @@ STEP_ERR_OFFSET = CODE_RATE * 127           # 508: sum_r |d_r - 127 e_r| offset
 _BIT_WEIGHTS = np.left_shift(np.uint64(1), np.arange(NB_STATES,
                                                      dtype=np.uint64)).view(np.int64)
 
-# launches of each kernel, and of the forward kernel by trellis length T
-# (tells the FIC decodes, T = 774, from the MSC ones); reset_launches()
-LAUNCHES = {"viterbi_acs": 0, "viterbi_chainback": 0}
+# What the kernels are built for: one H100 (sm_90a)
+SM_COUNT = 132
+MAX_BLOCK_SMEM = 232448        # dynamic shared memory a block may ask for
+MAX_MESSAGES_PER_BLOCK = 16    # one warp per message, at most 512 threads
+RING_BYTES = 4096              # staged symbols of one message (1024 steps)
+
+# launches of each kernel, and of a forward pass by trellis length T,
+# whichever kernel ran it (tells the FIC decodes, T = 774, from the MSC
+# ones); reset_launches()
+LAUNCHES = {"viterbi_decode_fused": 0, "viterbi_acs": 0,
+            "viterbi_chainback": 0}
 ACS_LAUNCHES_BY_T = collections.Counter()
 
 
@@ -48,25 +64,71 @@ def reset_launches():
     ACS_LAUNCHES_BY_T.clear()
 
 
+def fused_smem_per_message(T: int) -> int:
+    """Shared memory of one message in the fused kernel: the symbol ring,
+    8 bytes of decisions and 1 byte of decoded bit per step, in 16s."""
+    return RING_BYTES + (8 * T + (T + 7) // 8 * 8 + 15) // 16 * 16
+
+
+# the longest trellis whose decisions fit in a block's shared memory
+MAX_FUSED_T = (MAX_BLOCK_SMEM - RING_BYTES) // 9
+while fused_smem_per_message(MAX_FUSED_T) > MAX_BLOCK_SMEM:
+    MAX_FUSED_T -= 1
+
+
+def _messages_per_block(B: int, smem: int) -> int:
+    """1 while every message can have an SM of its own, else the share of
+    one SM, as far as a block's shared memory and warps allow."""
+    fit = min(MAX_BLOCK_SMEM // smem, MAX_MESSAGES_PER_BLOCK)
+    return 1 if B <= SM_COUNT else min(fit, -(-B // SM_COUNT))
+
+
+def plan(B: int, T: int):
+    """How ``decode`` runs B messages of T steps on the card:
+    (route, messages_per_block, smem_per_message).
+
+    route is "fused" while one message's decisions fit in a block's shared
+    memory (T <= MAX_FUSED_T = 25372), else "pair": the forward kernel
+    writing decisions to device memory and the chainback kernel. This
+    follows from the shape alone, never from a failed build or launch.
+    With no more messages than SMs each message gets a block, and so an SM,
+    of its own. With more, a block takes ceil(B / SM_COUNT) messages, as far
+    as its shared memory and 16 warps allow, so that one wave of blocks
+    fills every SM's shared memory."""
+    smem = fused_smem_per_message(T)
+    route = "fused" if smem <= MAX_BLOCK_SMEM else "pair"
+    if route == "pair":
+        smem = RING_BYTES
+    return route, _messages_per_block(B, smem), smem
+
+
 def _lib():
     lib = build.load("viterbi_acs")
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.viterbi_acs_forward.argtypes = [vp, vp, vp, ci, ci, vp]
+        lib.viterbi_decode_fused.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.viterbi_decode_fused.restype = ci
+        lib.viterbi_acs_forward.argtypes = [vp, vp, vp, ci, ci, ci, vp]
         lib.viterbi_acs_forward.restype = ci
         lib.viterbi_chainback.argtypes = [vp, vp, ci, ci, vp]
         lib.viterbi_chainback.restype = ci
+        # plan() stays a pure function of (B, T); its constants are held
+        # against the library's once, when the library is first loaded
+        limits = (ci * 3)()
+        lib.viterbi_limits.restype = None
+        lib.viterbi_limits(limits)
+        if list(limits) != [RING_BYTES, MAX_MESSAGES_PER_BLOCK, MAX_BLOCK_SMEM]:
+            raise RuntimeError(f"viterbi_acs: the library was built for "
+                               f"{list(limits)}, the wrapper plans for "
+                               f"{[RING_BYTES, MAX_MESSAGES_PER_BLOCK, MAX_BLOCK_SMEM]}")
+        lib.viterbi_fused_smem_needed.argtypes = [ci]
+        lib.viterbi_fused_smem_needed.restype = ci
+        for T in (1, 774, 1542, 9222, MAX_FUSED_T):
+            if lib.viterbi_fused_smem_needed(T) != fused_smem_per_message(T):
+                raise RuntimeError(f"viterbi_acs: the library and the wrapper "
+                                   f"size a message of T={T} differently")
         lib._typed = True
     return lib
-
-
-def _check_cuda(t: torch.Tensor, dtype, ndim: int, what: str):
-    if t.device.type != "cuda":
-        raise ValueError(f"{what}: expected a CUDA or CPU tensor, got "
-                         f"{t.device}")
-    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
-        raise ValueError(f"{what}: expected a contiguous {ndim}-d {dtype} "
-                         f"tensor, got {t.dtype} {tuple(t.shape)}")
 
 
 # ---------------------------------------------------------------- plain
@@ -118,25 +180,37 @@ def chainback_plain(dec: torch.Tensor) -> torch.Tensor:
 
 # ---------------------------------------------------------------- wrappers
 
+def _check_symbols(d: torch.Tensor, what: str):
+    """Raise unless d is what the kernels take: a contiguous (B, T, 4) int8
+    CUDA tensor, 4-byte aligned."""
+    if d.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {d.device}")
+    if (d.dtype != torch.int8 or d.dim() != 3 or d.shape[2] != CODE_RATE
+            or not d.is_contiguous()):
+        raise ValueError(f"{what}: expected a contiguous (B, T, 4) int8 "
+                         f"tensor, got {d.dtype} {tuple(d.shape)}")
+    if d.data_ptr() % 4:
+        raise ValueError(f"{what}: the kernel reads each step's 4 symbols as "
+                         "one 32-bit word; the tensor must be 4-byte aligned")
+
+
 def viterbi_acs(d: torch.Tensor):
-    """Forward ACS over (B, T, 4) int8 -> (dec (T, B) int64, err (B,) int32)."""
+    """Forward ACS over (B, T, 4) int8 -> (dec (T, B) int64, err (B,) int32).
+    On the card dec is the transposed view of a contiguous (B, T) tensor."""
     if d.device.type == "cpu":
         return viterbi_acs_plain(d)
-    _check_cuda(d, torch.int8, 3, "viterbi_acs")
-    B, T, rate = d.shape
-    if rate != CODE_RATE:
-        raise ValueError(f"viterbi_acs: expected (B, T, 4), got {tuple(d.shape)}")
-    if d.data_ptr() % 4:
-        raise ValueError("viterbi_acs: the kernel reads each step's 4 symbols "
-                         "as one 32-bit word; the tensor must be 4-byte aligned")
-    dec = torch.empty((T, B), dtype=torch.int64, device=d.device)
+    _check_symbols(d, "viterbi_acs")
+    B, T, _ = d.shape
+    dec = torch.empty((B, T), dtype=torch.int64, device=d.device).T
     err = torch.empty((B,), dtype=torch.int32, device=d.device)
     if B == 0 or T == 0:
         return dec, err.fill_(0)
+    per_block = _messages_per_block(B, RING_BYTES)
     stream = torch.cuda.current_stream(d.device).cuda_stream
     with torch.cuda.device(d.device):
         rc = _lib().viterbi_acs_forward(d.data_ptr(), dec.data_ptr(),
-                                        err.data_ptr(), B, T, stream)
+                                        err.data_ptr(), B, T, per_block,
+                                        stream)
     if rc:
         raise RuntimeError(f"viterbi_acs_forward launch failed: CUDA error {rc}")
     LAUNCHES["viterbi_acs"] += 1
@@ -145,17 +219,22 @@ def viterbi_acs(d: torch.Tensor):
 
 
 def chainback(dec: torch.Tensor) -> torch.Tensor:
-    """Chainback from state 0 over (T, B) int64 decisions -> bits (B, T) int8."""
+    """Chainback from state 0 over (T, B) int64 decisions -> bits (B, T) int8.
+    The kernel reads each message's words as a row: a dec that is not the
+    transposed view of a contiguous (B, T) tensor is copied into one."""
     if dec.device.type == "cpu":
         return chainback_plain(dec)
-    _check_cuda(dec, torch.int64, 2, "chainback")
+    if dec.device.type != "cuda" or dec.dtype != torch.int64 or dec.dim() != 2:
+        raise ValueError(f"chainback: expected a 2-d int64 CUDA or CPU tensor, "
+                         f"got {dec.dtype} {tuple(dec.shape)} on {dec.device}")
     T, B = dec.shape
+    rows = dec.T.contiguous()               # no copy for viterbi_acs's dec
     bits = torch.empty((B, T), dtype=torch.int8, device=dec.device)
     if B == 0 or T == 0:
         return bits
     stream = torch.cuda.current_stream(dec.device).cuda_stream
     with torch.cuda.device(dec.device):
-        rc = _lib().viterbi_chainback(dec.data_ptr(), bits.data_ptr(), B, T,
+        rc = _lib().viterbi_chainback(rows.data_ptr(), bits.data_ptr(), B, T,
                                       stream)
     if rc:
         raise RuntimeError(f"viterbi_chainback launch failed: CUDA error {rc}")
@@ -163,8 +242,45 @@ def chainback(dec: torch.Tensor) -> torch.Tensor:
     return bits
 
 
+def decode_fused(d: torch.Tensor):
+    """The fused kernel alone, on a CUDA tensor: (B, T, 4) int8 ->
+    (bits (B, T) int8, err (B,) int32) in one launch. Raises for a T above
+    MAX_FUSED_T."""
+    _check_symbols(d, "decode_fused")
+    B, T, _ = d.shape
+    route, per_block, smem = plan(B, T)
+    if route != "fused":
+        raise ValueError(f"decode_fused: T={T} needs {fused_smem_per_message(T)}"
+                         f" bytes of shared memory a message, a block has "
+                         f"{MAX_BLOCK_SMEM}; decode() takes the kernel pair")
+    bits = torch.empty((B, T), dtype=torch.int8, device=d.device)
+    err = torch.empty((B,), dtype=torch.int32, device=d.device)
+    if B == 0 or T == 0:
+        return bits, err.fill_(0)
+    stream = torch.cuda.current_stream(d.device).cuda_stream
+    with torch.cuda.device(d.device):
+        rc = _lib().viterbi_decode_fused(d.data_ptr(), bits.data_ptr(),
+                                         err.data_ptr(), B, T, per_block, smem,
+                                         stream)
+    if rc:
+        raise RuntimeError(f"viterbi_decode_fused launch failed: CUDA error {rc}")
+    LAUNCHES["viterbi_decode_fused"] += 1
+    ACS_LAUNCHES_BY_T[T] += 1
+    return bits, err
+
+
 def decode(d: torch.Tensor):
     """Full decode of (B, T, 4) int8 depunctured symbols ->
-    (bits (B, T) int8, err (B,) int32)."""
+    (bits (B, T) int8, err (B,) int32).
+
+    A CPU tensor takes the plain versions. A CUDA tensor takes the route
+    ``plan`` names for its shape: the fused kernel, or for T > MAX_FUSED_T
+    the forward and chainback kernels with the decisions in device memory."""
+    if d.device.type == "cpu":
+        dec, err = viterbi_acs_plain(d)
+        return chainback_plain(dec), err
+    _check_symbols(d, "decode")
+    if plan(d.shape[0], d.shape[1])[0] == "fused":
+        return decode_fused(d)
     dec, err = viterbi_acs(d)
     return chainback(dec), err

@@ -24,8 +24,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from dab_radio_tpu.params import get_ofdm_params, get_prs_reference
-from dab_radio_tpu.params.mapper import get_carrier_mapper, get_carrier_to_fft_bin
+from ..params import get_ofdm_params, get_prs_reference
+from ..params.mapper import get_carrier_mapper, get_carrier_to_fft_bin
 from ..ops import sync as sync_ops
 from ..ops.demod import demod_frame_body
 from ..ops.pll import apply_pll

@@ -14,8 +14,8 @@ carrier i, so modulate -> demodulate -> hard decision is the identity.
 import numpy as np
 import torch
 
-from dab_radio_tpu.params import get_ofdm_params, get_prs_reference
-from dab_radio_tpu.params.mapper import get_carrier_mapper, get_carrier_to_fft_bin
+from ..params import get_ofdm_params, get_prs_reference
+from ..params.mapper import get_carrier_mapper, get_carrier_to_fft_bin
 
 
 class OFDMModulator:

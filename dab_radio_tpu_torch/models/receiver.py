@@ -15,13 +15,13 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 
-from dab_radio_tpu.params import get_dab_params, SubchannelConfig
-from dab_radio_tpu.dab.fig_native import NativeFIGParser
-from dab_radio_tpu.dab.database import (
+from ..params import get_dab_params, SubchannelConfig
+from ..dab.fig_native import NativeFIGParser
+from ..dab.database import (
     DatabaseUpdater, STREAM_AUDIO, PACKET_DATA, AUDIO_DAB, AUDIO_DAB_PLUS,
     Subchannel, db_mutation_clock,
 )
-from dab_radio_tpu.dab.aac import SuperframeProcessor
+from ..dab.aac import SuperframeProcessor
 from ..dab.fic import FICDecoder
 from ..dab.msc import MSCDecoder, decode_frame_group, group_key
 from ..utils.profiler import profile_scope
@@ -74,8 +74,8 @@ class DabPlusChannel(ChannelCheckpointMixin):
 
     def __init__(self, cfg: SubchannelConfig,
                  device: torch.device = torch.device("cpu")):
-        from dab_radio_tpu.dab.aac_data import AACDataDecoder
-        from dab_radio_tpu.dab.slideshow import SlideshowManager
+        from ..dab.aac_data import AACDataDecoder
+        from ..dab.slideshow import SlideshowManager
         self.cfg = cfg
         self.msc = MSCDecoder(cfg, device)
         self.superframe = SuperframeProcessor()
@@ -115,7 +115,7 @@ class DabPlusChannel(ChannelCheckpointMixin):
         return True
 
     def _ensure_decoder(self, header):
-        from dab_radio_tpu.host.codecs import AACDecoder
+        from ..host.codecs import AACDecoder
         if self._audio_decoder is None or self._decoder_header != header:
             if self._audio_decoder is not None:
                 self._audio_decoder.close()
@@ -168,8 +168,8 @@ class DabChannel(ChannelCheckpointMixin):
 
     def __init__(self, cfg: SubchannelConfig,
                  device: torch.device = torch.device("cpu")):
-        from dab_radio_tpu.dab.mp2 import MP2PadExtractor
-        from dab_radio_tpu.dab.slideshow import SlideshowManager
+        from ..dab.mp2 import MP2PadExtractor
+        from ..dab.slideshow import SlideshowManager
         self.cfg = cfg
         self.msc = MSCDecoder(cfg, device)
         self.events = ChannelEvents()
@@ -192,7 +192,7 @@ class DabChannel(ChannelCheckpointMixin):
             cb(label)
 
     def enable_audio_decode(self) -> bool:
-        from dab_radio_tpu.host.codecs import MP2Decoder
+        from ..host.codecs import MP2Decoder
         self.controls.decode_audio = True
         self._audio_decoder = MP2Decoder()
         return self._audio_decoder.is_available
@@ -233,7 +233,7 @@ class DataPacketChannel(ChannelCheckpointMixin):
 
     def __init__(self, cfg: SubchannelConfig, packet_address: int,
                  fec_scheme: int, device: torch.device = torch.device("cpu")):
-        from dab_radio_tpu.dab.packets import PacketProcessor
+        from ..dab.packets import PacketProcessor
         self.cfg = cfg
         self.msc = MSCDecoder(cfg, device)
         self.events = ChannelEvents()

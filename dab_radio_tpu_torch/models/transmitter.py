@@ -15,8 +15,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from dab_radio_tpu.params import get_dab_params, get_ofdm_params, SubchannelConfig
-from dab_radio_tpu.dab.aac import SuperframeEncoder, SuperFrameHeader
+from ..params import get_dab_params, get_ofdm_params, SubchannelConfig
+from ..dab.aac import SuperframeEncoder, SuperFrameHeader
 from ..dab.fic import FICEncoder
 from ..dab.msc import MSCEncoder
 from .modulator import OFDMModulator
@@ -120,9 +120,9 @@ class ToneAudioSource:
     def __init__(self, header: SuperFrameHeader, freq: float = 440.0,
                  amp: int = 60, global_gain: int = 160,
                  fpad: bytes = b"\x00\x00", xpad: bytes = b""):
-        from dab_radio_tpu.dab.aac import _SAMPLE_RATE_INDEX
-        from dab_radio_tpu.dab.aac_enc import encode_au_960, tone_coeffs
-        from dab_radio_tpu.dab import sbr as S
+        from ..dab.aac import _SAMPLE_RATE_INDEX
+        from ..dab.aac_enc import encode_au_960, tone_coeffs
+        from ..dab import sbr as S
         self.header = header
         core = header.core_sample_rate
         ch = 2 if (header.is_stereo and not header.ps) else 1
@@ -140,7 +140,7 @@ class ToneAudioSource:
             if header.ps:
                 # HE-AAC v2: IID left-pan so receivers can assert true
                 # stereo reconstruction (dab/ps_synth.py)
-                from dab_radio_tpu.dab.ps import PSData, nr_par
+                from ..dab.ps import PSData, nr_par
                 ps_data = PSData(enable_iid=True, iid_mode=1, num_env=1)
                 ps_data.iid_par = np.full((1, nr_par(1)), 4, np.int64)
             sbr_payload, sbr_bits = S.build_sbr_payload(
@@ -186,7 +186,7 @@ class MP2ToneSource:
     decoders ignore — where DAB carries F-PAD) are zeroed."""
 
     def __init__(self, nb_frame_bytes: int, freq: float = 440.0):
-        from dab_radio_tpu.host.native import codecs_lib
+        from ..host.native import codecs_lib
         self.nb = nb_frame_bytes
         self._frames: List[bytes] = []
         lib = codecs_lib()
@@ -260,7 +260,7 @@ class EnsembleTransmitter:
                 self.sf_encoders[s.subchannel_id] = sf
                 self.sf_pending[s.subchannel_id] = []
             elif s.kind == "packet":
-                from dab_radio_tpu.dab.packets import PacketStreamEncoder
+                from ..dab.packets import PacketStreamEncoder
                 if enc.nb_data_bytes % 24:
                     raise ValueError(
                         "packet subchannel frame size must hold whole packets")
@@ -337,7 +337,7 @@ class EnsembleTransmitter:
         """A frame-header-valid MP2-shaped payload (content is random; the
         receiver's PAD extractor only parses the header and frame tail)."""
         # MPEG-1 Layer II, 48 kHz; pick the bitrate index matching nb_bytes
-        from dab_radio_tpu.dab.mp2 import _BITRATES_V1_L2
+        from ..dab.mp2 import _BITRATES_V1_L2
         target_kbps = nb_bytes * 8 // 24
         idx = _BITRATES_V1_L2.index(target_kbps) \
             if target_kbps in _BITRATES_V1_L2 else 8

@@ -24,7 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from dab_radio_tpu.params.puncture import build_depuncture_gather, CODE_RATE
+from ..params.puncture import build_depuncture_gather, CODE_RATE
 from ..kernels import viterbi_acs
 
 K = 7

@@ -11,13 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from dab_radio_tpu.params import SubchannelConfig
 from dab_radio_tpu_torch.dab import fic, msc
 from dab_radio_tpu_torch.kernels import viterbi_acs as K
 from dab_radio_tpu_torch.models.demodulator import (OFDMDemodulator,
                                                     StreamingDemodulator)
 from dab_radio_tpu_torch.models.transmitter import (EnsembleTransmitter,
                                                     ServiceSpec)
+from dab_radio_tpu_torch.params import SubchannelConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -34,24 +34,66 @@ def _noisy(x, rng, std):
     return np.clip(np.round(y), -127, 127).astype(np.int8)
 
 
-@pytest.mark.parametrize("B,T", [(4, 774), (72, 1542), (130, 200), (3, 9222)])
-def test_viterbi_kernels_match_plain(cuda, B, T):
+SHAPES = [(4, 774), (72, 1542), (130, 200), (3, 9222), (5, 7), (2, 1031)]
+
+
+def _symbols(B, T):
     rng = np.random.default_rng(B)
-    d = rng.integers(-127, 128, (B, T, 4)).astype(np.int8)
+    d = rng.integers(-128, 128, (B, T, 4)).astype(np.int8)
     d[:, ::4, 3] = 0
     d[0] = 0                                   # every candidate ties
+    return d
+
+
+@pytest.mark.parametrize("B,T", SHAPES)
+def test_viterbi_kernels_match_plain(cuda, B, T):
+    d = _symbols(B, T)
     dc = torch.as_tensor(d, device=cuda)
     K.reset_launches()
     dec, err = K.viterbi_acs(dc)
     bits = K.chainback(dec)
     torch.cuda.synchronize()
-    assert K.LAUNCHES == {"viterbi_acs": 1, "viterbi_chainback": 1}
+    assert K.LAUNCHES == {"viterbi_decode_fused": 0, "viterbi_acs": 1,
+                          "viterbi_chainback": 1}
     assert K.ACS_LAUNCHES_BY_T == {T: 1}
     pdec, perr = K.viterbi_acs_plain(dc)
     assert torch.equal(dec, pdec) and torch.equal(err, perr)
     assert torch.equal(bits, K.chainback_plain(pdec))
+    # a (T, B)-contiguous dec, as the plain version makes it, is taken too
+    assert torch.equal(K.chainback(pdec), bits)
     cbits, cerr = K.decode(torch.as_tensor(d))          # CPU: plain version
     assert torch.equal(bits.cpu(), cbits) and torch.equal(err.cpu(), cerr)
+
+
+@pytest.mark.parametrize("B,T", SHAPES + [(300, 774)])
+def test_fused_viterbi_kernel_matches_plain(cuda, B, T):
+    d = _symbols(B, T)
+    dc = torch.as_tensor(d, device=cuda)
+    K.reset_launches()
+    bits, err = K.decode(dc)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"viterbi_decode_fused": 1, "viterbi_acs": 0,
+                          "viterbi_chainback": 0}
+    assert K.ACS_LAUNCHES_BY_T == {T: 1}
+    pdec, perr = K.viterbi_acs_plain(dc)
+    assert torch.equal(err, perr)
+    assert torch.equal(bits, K.chainback_plain(pdec))
+
+
+def test_long_trellis_takes_the_kernel_pair(cuda):
+    T = K.MAX_FUSED_T + 1
+    dc = torch.as_tensor(_symbols(2, T), device=cuda)
+    K.reset_launches()
+    bits, err = K.decode(dc)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"viterbi_decode_fused": 0, "viterbi_acs": 1,
+                          "viterbi_chainback": 1}
+    with pytest.raises(ValueError):
+        K.decode_fused(dc)
+    short = dc[:, :K.MAX_FUSED_T].contiguous()          # the last T that fits
+    fbits, ferr = K.decode_fused(short)
+    dec, perr = K.viterbi_acs(short)
+    assert torch.equal(ferr, perr) and torch.equal(fbits, K.chainback(dec))
 
 
 def test_viterbi_wrappers_check_cuda_inputs(cuda):
@@ -64,6 +106,16 @@ def test_viterbi_wrappers_check_cuda_inputs(cuda):
                                   device=cuda)[1:].view(2, 10, 4))
     with pytest.raises(ValueError):
         K.chainback(torch.zeros((10, 2), dtype=torch.int32, device=cuda))
+    for bad in (torch.zeros((2, 10, 4), dtype=torch.int32, device=cuda),
+                torch.zeros((2, 10, 3), dtype=torch.int8, device=cuda),
+                torch.zeros((2, 10, 8), dtype=torch.int8, device=cuda)[:, :, :4],
+                torch.zeros(81, dtype=torch.int8, device=cuda)[1:].view(2, 10, 4)):
+        with pytest.raises(ValueError):
+            K.decode(bad)
+        with pytest.raises(ValueError):
+            K.decode_fused(bad)
+    bits, err = K.decode(torch.zeros((0, 10, 4), dtype=torch.int8, device=cuda))
+    assert bits.shape == (0, 10) and err.shape == (0,)
 
 
 def test_fic_and_msc_decode_on_cuda_match_cpu(cuda):

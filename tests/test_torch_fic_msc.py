@@ -4,21 +4,29 @@ the 16-CIF deinterleaver fills), identical encoder output, and the MSC
 state carried across with ``convert.py``.
 """
 
+import dataclasses
 import pickle
 
 import numpy as np
 import torch
 
-from dab_radio_tpu.params import SubchannelConfig
+from dab_radio_tpu.params import SubchannelConfig as JConfig
 from dab_radio_tpu.dab import fic as jfic, msc as jmsc
 from dab_radio_tpu_torch.dab import fic as tfic, msc as tmsc
-from dab_radio_tpu_torch.convert import msc_state_from_jax
+from dab_radio_tpu_torch.convert import (msc_state_from_jax,
+                                         subchannel_config_from_jax)
+from dab_radio_tpu_torch.params import SubchannelConfig as TConfig
 
 torch.set_num_threads(1)
 
-EEP = SubchannelConfig(0, 12, False, eep_type="A", eep_prot_level=2)
-UEP = SubchannelConfig(12, 21, True, uep_table_index=1)
-EEP_B = SubchannelConfig(33, 12, False, eep_type="A", eep_prot_level=2)
+# the JAX package's configs; the port gets its own through convert.py
+EEP = JConfig(0, 12, False, eep_type="A", eep_prot_level=2)
+UEP = JConfig(12, 21, True, uep_table_index=1)
+EEP_B = JConfig(33, 12, False, eep_type="A", eep_prot_level=2)
+
+
+def _t(cfg) -> TConfig:
+    return subchannel_config_from_jax(cfg)
 
 
 def _noisy(soft, rng, std=55.0):
@@ -53,7 +61,7 @@ def _msc_stream(cfgs, nb_frames, seed):
     (nb_frames, 4, 864*64) int8 soft bits with noise."""
     rng = np.random.default_rng(seed)
     encs_j = [jmsc.MSCEncoder(c) for c in cfgs]
-    encs_t = [tmsc.MSCEncoder(c) for c in cfgs]
+    encs_t = [tmsc.MSCEncoder(_t(c)) for c in cfgs]
     frames = np.zeros((nb_frames, 4, 864 * 64), np.int8)
     for f in range(nb_frames):
         for k in range(4):
@@ -69,7 +77,7 @@ def _msc_stream(cfgs, nb_frames, seed):
 def test_msc_decode_frame_matches_jax_through_fill():
     frames = _msc_stream([EEP, UEP], 6, seed=1)
     for cfg in (EEP, UEP):
-        dj, dt = jmsc.MSCDecoder(cfg), tmsc.MSCDecoder(cfg)
+        dj, dt = jmsc.MSCDecoder(cfg), tmsc.MSCDecoder(_t(cfg))
         outs = []
         for f in frames:
             pj, pt = dj.decode_frame(f), dt.decode_frame(f)
@@ -82,7 +90,7 @@ def test_msc_decode_frame_matches_jax_through_fill():
 
 def test_msc_decode_cif_matches_jax():
     frames = _msc_stream([UEP], 5, seed=2)
-    dj, dt = jmsc.MSCDecoder(UEP), tmsc.MSCDecoder(UEP)
+    dj, dt = jmsc.MSCDecoder(UEP), tmsc.MSCDecoder(_t(UEP))
     for f in frames:
         for cif in f:
             assert dt.decode_cif(cif) == dj.decode_cif(cif)
@@ -92,8 +100,8 @@ def test_msc_decode_cif_matches_jax():
 def test_msc_decode_frame_group_matches_jax():
     frames = _msc_stream([EEP, EEP_B], 6, seed=3)
     dj = [jmsc.MSCDecoder(EEP), jmsc.MSCDecoder(EEP_B)]
-    dt = [tmsc.MSCDecoder(EEP), tmsc.MSCDecoder(EEP_B)]
-    assert tmsc.group_key(EEP) == tmsc.group_key(EEP_B)
+    dt = [tmsc.MSCDecoder(_t(EEP)), tmsc.MSCDecoder(_t(EEP_B))]
+    assert tmsc.group_key(_t(EEP)) == tmsc.group_key(_t(EEP_B))
     for f in frames:
         rj = jmsc.decode_frame_group(dj, f)
         rt = tmsc.decode_frame_group(dt, f)
@@ -112,6 +120,8 @@ def test_msc_state_from_jax_resumes_mid_fill():
     assert dj.nb_pushed == 8                     # deinterleaver still filling
     dt = tmsc.MSCDecoder.__new__(tmsc.MSCDecoder)
     dt.__setstate__(msc_state_from_jax(dj.__getstate__()))
+    assert type(dt.cfg) is TConfig and dt.cfg == _t(EEP)
+    assert _t(dataclasses.asdict(EEP)) == _t(EEP)         # from a field dict
     for f in frames[2:]:
         assert dt.decode_frame(f) == dj.decode_frame(f)
     state = pickle.loads(pickle.dumps(dt)).__getstate__()

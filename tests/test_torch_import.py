@@ -1,7 +1,10 @@
-"""The PyTorch port never loads JAX: in a fresh interpreter, import every
-module of the package and run its main path (transmitter -> u8 file ->
-radio_cli on the CPU) for a few frames, then check sys.modules."""
+"""The PyTorch port loads neither JAX nor the JAX package: in a fresh
+interpreter, import every module of the package and run its main path
+(transmitter -> u8 file -> radio_cli on the CPU) for a few frames, then
+check sys.modules; and no source file of the port imports either."""
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -20,8 +23,8 @@ SCRIPT = textwrap.dedent("""
         importlib.import_module(m.name)
     assert "jax" not in sys.modules, "import loaded jax"
 
-    from dab_radio_tpu.host.native import iq_quantize_u8
-    from dab_radio_tpu.params import SubchannelConfig
+    from dab_radio_tpu_torch.host.native import iq_quantize_u8
+    from dab_radio_tpu_torch.params import SubchannelConfig
     from dab_radio_tpu_torch.apps import radio_cli
     from dab_radio_tpu_torch.models.transmitter import (EnsembleTransmitter,
                                                         ServiceSpec)
@@ -35,6 +38,9 @@ SCRIPT = textwrap.dedent("""
         f.write(iq_quantize_u8(iq / np.abs(iq).max() * 0.5))
     assert radio_cli.main(["-i", path, "-F", "u8", "--backend", "cpu"]) == 0
     assert "jax" not in sys.modules, "the main path loaded jax"
+    loaded = [m for m in sys.modules
+              if m == "dab_radio_tpu" or m.startswith("dab_radio_tpu.")]
+    assert not loaded, f"the port loaded the JAX package: {loaded}"
     print("NO_JAX_OK")
 """)
 
@@ -49,3 +55,27 @@ def test_port_never_loads_jax(tmp_path):
     assert "NO_JAX_OK" in res.stdout
     assert "ensemble: id=C0FE" in res.stderr
     assert "demod: frames_read=2 desync=0" in res.stderr
+
+
+def _imported_modules(path):
+    """Top-level names of every module a source file imports, at any depth
+    of the file (lazy imports inside functions included)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+def test_port_sources_import_neither_jax_nor_the_jax_package():
+    sources = glob.glob(os.path.join(ROOT, "dab_radio_tpu_torch", "**", "*.py"),
+                        recursive=True)
+    sources.append(os.path.join(ROOT, "chip_smoke.py"))
+    assert len(sources) > 60
+    for path in sources:
+        bad = _imported_modules(path) & {"jax", "jaxlib", "dab_radio_tpu"}
+        assert not bad, f"{os.path.relpath(path, ROOT)} imports {sorted(bad)}"

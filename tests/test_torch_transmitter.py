@@ -8,11 +8,13 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-from dab_radio_tpu.dab.aac import SuperFrameHeader
+from dab_radio_tpu.dab.aac import SuperFrameHeader as JHeader
 from dab_radio_tpu.models.modulator import OFDMModulator as JMod
 from dab_radio_tpu.models.transmitter import (EnsembleTransmitter as JTx,
                                               ServiceSpec as JSpec)
-from dab_radio_tpu.params import SubchannelConfig, get_ofdm_params
+from dab_radio_tpu.params import SubchannelConfig as JConfig, get_ofdm_params
+from dab_radio_tpu_torch.dab.aac import SuperFrameHeader as THeader
+from dab_radio_tpu_torch.params import SubchannelConfig as TConfig
 from dab_radio_tpu_torch.models.modulator import OFDMModulator as TMod
 from dab_radio_tpu_torch.models.transmitter import (EnsembleTransmitter as TTx,
                                                     ServiceSpec as TSpec)
@@ -34,12 +36,14 @@ def _au_source(seed):
 
 
 def _services(Spec):
+    """The same two services from each package's own classes."""
+    Config, Header = ((JConfig, JHeader) if Spec is JSpec
+                      else (TConfig, THeader))
     return [
-        Spec(0xF123, 3, "Plus", SubchannelConfig(0, 12, False, eep_type="A",
-                                                 eep_prot_level=2),
-             superframe_header=SuperFrameHeader(48000, True, True, False, 0)),
-        Spec(0xF124, 4, "Classic", SubchannelConfig(12, 35, True,
-                                                    uep_table_index=5),
+        Spec(0xF123, 3, "Plus", Config(0, 12, False, eep_type="A",
+                                       eep_prot_level=2),
+             superframe_header=Header(48000, True, True, False, 0)),
+        Spec(0xF124, 4, "Classic", Config(12, 35, True, uep_table_index=5),
              kind="dab"),
     ]
 

@@ -138,3 +138,84 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         viterbi_acs.chainback(torch.zeros((10, 2), dtype=torch.int64,
                                           device="meta"))
+
+
+# ------------------------------------------------- the wrapper's dispatch
+
+FUSED_SMEM = viterbi_acs.fused_smem_per_message
+
+
+@pytest.mark.parametrize("B,T,route,per_block", [
+    (4, 774, "fused", 1),            # FIC decode of one mode-I frame
+    (72, 1542, "fused", 1),          # MSC group, 18 subchannels x 4 CIFs
+    (1024, 1542, "fused", 8),        # 128 blocks of 8: one wave on 132 SMs
+    (1152, 1542, "fused", 9),        # 16 streams of the 18-service ensemble
+    (8, 9222, "fused", 1),           # a 384 kbit/s subchannel
+    (2, 41478, "pair", 1),           # 864 CU at EEP 4-A
+    (132, 1542, "fused", 1),         # as many messages as SMs
+    (133, 1542, "fused", 2),
+    (5000, 1542, "fused", 12),       # what a block's shared memory holds
+    (5000, 100, "fused", 16),        # what a block's 16 warps hold
+    (5000, 9222, "fused", 2),
+    (1000, 41478, "pair", 8),
+    (0, 774, "fused", 1),
+    (4, 0, "fused", 1),
+])
+def test_plan_picks_route_and_messages_per_block(B, T, route, per_block):
+    got_route, got_per_block, smem = viterbi_acs.plan(B, T)
+    assert (got_route, got_per_block) == (route, per_block)
+    assert smem % 16 == 0
+    assert got_per_block * smem <= viterbi_acs.MAX_BLOCK_SMEM
+    if route == "fused":
+        # the ring, 8 bytes of decisions and 1 byte of bit per step
+        assert smem == FUSED_SMEM(T) >= viterbi_acs.RING_BYTES + 9 * T
+    else:
+        assert smem == viterbi_acs.RING_BYTES
+
+
+def test_plan_edge_of_shared_memory():
+    last = viterbi_acs.MAX_FUSED_T
+    assert last == 25372
+    assert FUSED_SMEM(last) <= viterbi_acs.MAX_BLOCK_SMEM < FUSED_SMEM(last + 1)
+    assert viterbi_acs.plan(1, last)[0] == "fused"
+    assert viterbi_acs.plan(1, last + 1)[0] == "pair"
+    # the route depends on T alone, the messages per block never exceed B's
+    # share of an SM
+    for B in (1, 72, 133, 10_000):
+        assert viterbi_acs.plan(B, last)[:2] == ("fused", 1)
+        assert viterbi_acs.plan(B, last + 1)[0] == "pair"
+        assert viterbi_acs.plan(B, 1542)[1] <= max(1, -(-B // 132))
+
+
+@pytest.mark.parametrize("B,T,kind", [
+    (3, 100, "noise"), (3, 101, "noise"), (2, 16, "noise"), (2, 33, "noise"),
+    (2, 64, "zero"), (2, 65, "zero"), (3, 48, "minus128"), (3, 49, "minus128"),
+])
+def test_kernel_decode_on_cpu_matches_jax(B, T, kind):
+    """kernels.viterbi_acs.decode on CPU tensors (the plain versions) against
+    the JAX main path's radix-4 decode (radix-2 for an odd T): even and odd
+    T, an input where every candidate ties, and soft values of -128."""
+    rng = np.random.default_rng(T)
+    d = rng.integers(-127, 128, (B, T, 4)).astype(np.int8)
+    d[:, ::3, 2:] = 0
+    if kind == "zero":
+        d[:] = 0
+    elif kind == "minus128":
+        d[rng.random(d.shape) < 0.3] = -128
+    jdec = jvit.viterbi_decode_soft_radix4 if T % 2 == 0 \
+        else jvit.viterbi_decode_soft
+    jb, je = jdec(jnp.asarray(d.astype(np.int32)))
+    tb, te = viterbi_acs.decode(torch.as_tensor(d))
+    assert tb.dtype == torch.int8 and te.dtype == torch.int32
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+    np.testing.assert_array_equal(te.numpy(), np.asarray(je))
+
+
+def test_decode_wrappers_reject_what_is_neither_cpu_nor_cuda():
+    d = torch.zeros((2, 10, 4), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError):
+        viterbi_acs.decode(d)
+    with pytest.raises(ValueError):
+        viterbi_acs.decode_fused(d)
+    with pytest.raises(ValueError):                     # no CPU fused kernel
+        viterbi_acs.decode_fused(torch.zeros((2, 10, 4), dtype=torch.int8))
