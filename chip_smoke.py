@@ -22,7 +22,17 @@ It exits non-zero, printing no result, when there is no card. Phases:
    trellis of 41,478 steps) from the port's MSCEncoder, with noise, through
    the port's MSCDecoder on the card; every payload byte-exact, decoded by
    the forward and chainback kernel pair;
-6. which host native libraries run as shared libraries, a JSON line of the
+6. the fleet path, at full width: 16 streams of that ensemble (4 distinct
+   captures, each with its own access units, carrier offset and noise)
+   served by the port's fleet_serve on the card, 8 frames a round; 16
+   stream lines with ensemble C0FE and 18 services, every stream's every
+   subchannel's access units byte-exact, valid FIBs on every stream, and
+   exactly one fused Viterbi launch a round, of 9,728 messages of 1,542
+   steps; the time of each round, the device time of the round's step, the
+   host's byte-layer time and the real-time ensembles they amount to;
+7. a discovery run: 2 distinct captures through fleet_serve --discover, 4
+   frames a round (per-stream layouts from the dynamic receiver);
+8. which host native libraries run as shared libraries, a JSON line of the
    kernels, then the last line {"ok": true, "device": {...}}.
 
 Scratch files go to build/chip_smoke/ in the checkout.
@@ -32,8 +42,11 @@ Scratch files go to build/chip_smoke/ in the checkout.
 measures instead: it builds the kernels, makes the same ensemble over more
 frames and decodes it with radio_cli on the card once cold and five times
 warm (wall time and real-time factor), once with the stage spans on, and
-once under torch.profiler (device busy share, device time by kernel). The
-numbers are printed and written to build/chip_smoke/measure.json.
+once under torch.profiler (device busy share, device time by kernel). Then
+the fleet path: 16 streams through FusedFleet, 5 warm rounds under
+torch.profiler (round wall, device busy share, device time by kernel), and
+the round's stop_after ladder in ms a round. The numbers are printed and
+written to build/chip_smoke/measure.json.
 """
 
 import argparse
@@ -53,18 +66,34 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 
 # ensemble of the main path: apps/simulate_transmitter.py --services 18
 NB_SERVICES = 18
-NB_FRAMES = 25
+NB_FRAMES = 26
 CFO_BINS = 3.37          # carrier offset, in carrier spacings (1 kHz each)
 SNR_DB = 15.0            # AWGN against the signal power
 SEED = 2024
 
+# the fleet path: 16 streams (FLEET_DISTINCT distinct captures, repeated),
+# 8 frames a round, 26 frames each: 3 rounds and the tail
+FLEET_STREAMS = 16
+FLEET_DISTINCT = 4
+FLEET_K = 8
+# its one decode a round: 16 x (18 subchannels x 32 CIFs + 8 frames x 4 FIC
+# groups) messages
+FLEET_LANES = FLEET_STREAMS * (NB_SERVICES * 4 * FLEET_K + 4 * FLEET_K)
+DISCOVER_STREAMS = 2
+DISCOVER_K = 4
+
 # K1 shapes (B messages, T trellis steps): the FIC decode of a frame, the
 # 18-subchannel MSC group, a batch past the Pallas kernel's 128-lane cap,
-# 16 streams of the 18-service ensemble in one round, and the trellis of a
-# 384 kbit/s subchannel
+# 16 streams of one frame each, the trellis of a 384 kbit/s subchannel, and
+# the fleet path's round of 16 streams x 8 frames
 K1_SHAPES = [("fic", 4, 774), ("msc_group", 72, 1542), ("wide", 1024, 1542),
-             ("round16", 1152, 1542), ("long", 8, 9222)]
+             ("round16", 1152, 1542), ("long", 8, 9222),
+             ("round16x8", FLEET_LANES, 1542)]
 PLAIN_TIMED = ("fic", "msc_group")      # the plain loops take 0.1 to 0.9 s
+# the plain forward pass holds (B, T, 128) branch metrics in float32 and in
+# int32 and a (T, B, 64) int64 product: it is run on this many messages at
+# a time (messages are independent)
+PLAIN_CHUNK = 1216
 # the long-trellis path: 864 CU at EEP 4-A, 4 CIFs a frame
 LONG_CU = 864
 LONG_T = 41478
@@ -76,11 +105,12 @@ REPLACES = {"viterbi_decode_fused": "dab_radio_tpu/ops/viterbi_pallas.py:46",
             "viterbi_chainback": "dab_radio_tpu/ops/viterbi_pallas.py:151"}
 # the shape each kernel's entry in the JSON line is taken at: the one its
 # path gives it most of the work at
-REPORT_SHAPE = {"viterbi_decode_fused": "msc_group", "viterbi_acs": "eep4a_864cu",
+REPORT_SHAPE = {"viterbi_decode_fused": "round16x8",
+                "viterbi_acs": "eep4a_864cu",
                 "viterbi_chainback": "eep4a_864cu"}
 # the path of this script that launches each kernel: the other launches it
 # no time, which that path checks
-KERNEL_PATH = {"viterbi_decode_fused": "main", "viterbi_acs": "long",
+KERNEL_PATH = {"viterbi_decode_fused": "fleet", "viterbi_acs": "long",
                "viterbi_chainback": "long"}
 
 # Roofline of one H100 SXM. Device memory: 3.35 TB/s. int32 outside the
@@ -214,20 +244,36 @@ def check_kernels(dev):
                        "viterbi_acs": int(not fused),
                        "viterbi_chainback": int(not fused)},
               f"decode took the wrong route at {name}: {took}")
-        # the plain versions, timed by the one run that the comparison needs
-        start, mid, end = (torch.cuda.Event(enable_timing=True)
-                           for _ in range(3))
-        start.record()
-        pdec, perr = K.viterbi_acs_plain(d)
-        mid.record()
-        pbits = K.chainback_plain(pdec)
-        end.record()
-        torch.cuda.synchronize()
-        pms_acs, pms_cb = start.elapsed_time(mid), mid.elapsed_time(end)
-        same = {"viterbi_acs": torch.equal(dec, pdec) and torch.equal(err, perr),
-                "viterbi_chainback": torch.equal(bits, pbits),
-                "viterbi_decode_fused": (torch.equal(dbits, pbits)
-                                         and torch.equal(derr, perr))}
+        # the plain versions, PLAIN_CHUNK messages at a time, timed by the
+        # one run that the comparison needs
+        same = dict.fromkeys(REPLACES, True)
+        errs = dict.fromkeys(REPLACES, 0)
+        pms_acs = pms_cb = 0.0
+        for lo in range(0, B, PLAIN_CHUNK):
+            sl = slice(lo, lo + PLAIN_CHUNK)
+            start, mid, end = (torch.cuda.Event(enable_timing=True)
+                               for _ in range(3))
+            start.record()
+            pdec, perr = K.viterbi_acs_plain(d[sl])
+            mid.record()
+            pbits = K.chainback_plain(pdec)
+            end.record()
+            torch.cuda.synchronize()
+            pms_acs += start.elapsed_time(mid)
+            pms_cb += mid.elapsed_time(end)
+            same["viterbi_acs"] &= (torch.equal(dec[:, sl], pdec)
+                                    and torch.equal(err[sl], perr))
+            same["viterbi_chainback"] &= torch.equal(bits[sl], pbits)
+            same["viterbi_decode_fused"] &= (torch.equal(dbits[sl], pbits)
+                                             and torch.equal(derr[sl], perr))
+            for kernel, got, want in (
+                    ("viterbi_acs", err[sl], perr),
+                    ("viterbi_chainback", bits[sl], pbits),
+                    ("viterbi_decode_fused", dbits[sl], pbits),
+                    ("viterbi_decode_fused", derr[sl], perr)):
+                errs[kernel] = max(errs[kernel], int(
+                    (got.long() - want.long()).abs().max()))
+            del pdec, perr, pbits
         reps = 20 if T * B < 2_000_000 else 5
         ms = {"viterbi_acs": _cuda_ms(lambda: K.viterbi_acs(d), reps),
               "viterbi_chainback": _cuda_ms(lambda: K.chainback(dec), reps)}
@@ -239,11 +285,6 @@ def check_kernels(dev):
             pms_cb = _cuda_ms(lambda: K.chainback_plain(dec), 1)
         plain_ms = {"viterbi_acs": pms_acs, "viterbi_chainback": pms_cb,
                     "viterbi_decode_fused": pms_acs + pms_cb}
-        errs = {"viterbi_acs": int((err.long() - perr.long()).abs().max()),
-                "viterbi_chainback": int((bits.long() - pbits.long()).abs().max()),
-                "viterbi_decode_fused": max(
-                    int((dbits.long() - pbits.long()).abs().max()),
-                    int((derr.long() - perr.long()).abs().max()))}
         whole = ms.get("viterbi_decode_fused", ms.get("decode_pair"))
         log(f"K1 {name:14s} B={B:5d} T={T:5d} route={K.plan(B, T)} "
             f"bit-identical={all(same.values())} "
@@ -283,9 +324,10 @@ class _AUSource:
         return aus
 
 
-def make_capture(dev, path, nb_frames=NB_FRAMES):
+def make_capture(dev, path, nb_frames=NB_FRAMES, variant=0):
     """The 18-service ensemble through the port's transmitter, with CFO and
-    AWGN, written as u8 IQ. Returns {service_id: sent AU list}."""
+    AWGN, written as u8 IQ. Each variant has its own access units, carrier
+    offset and noise. Returns {service_id: sent AU list}."""
     from dab_radio_tpu_torch.models.transmitter import (
         EnsembleTransmitter, ServiceSpec, SubchannelConfig)
     services = [ServiceSpec(0xF123 + i, 3 + i, f"Radio TPU {i + 1}",
@@ -295,16 +337,17 @@ def make_capture(dev, path, nb_frames=NB_FRAMES):
     tx = EnsembleTransmitter(1, services=services, device=dev)
     sources = {}
     for i, s in enumerate(services):
-        sources[s.service_id] = _AUSource(SEED + i)
+        sources[s.service_id] = _AUSource(SEED + 1000 * variant + i)
         tx.set_au_source(s.subchannel_id, sources[s.service_id])
     t0 = time.perf_counter()
     iq = tx.generate(nb_frames)
     t_tx = time.perf_counter() - t0
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(SEED + variant)
+    cfo_bins = CFO_BINS * (-1) ** variant - 0.83 * variant
     lead = np.zeros(20000, np.complex64)
     iq = np.concatenate([lead, iq, lead])
     n = np.arange(iq.shape[0])
-    iq = iq * np.exp(2j * np.pi * CFO_BINS / 2048 * n)
+    iq = iq * np.exp(2j * np.pi * cfo_bins / 2048 * n)
     p_sig = float(np.mean(np.abs(iq[lead.shape[0]:-lead.shape[0]]) ** 2))
     std = np.sqrt(p_sig / 10 ** (SNR_DB / 10) / 2)
     iq = iq + std * (rng.normal(size=iq.shape) + 1j * rng.normal(size=iq.shape))
@@ -313,10 +356,18 @@ def make_capture(dev, path, nb_frames=NB_FRAMES):
     u8 = np.clip(iq.view(np.float32) * 127.5 + 127.5, 0, 255).astype(np.uint8)
     with open(path, "wb") as f:
         f.write(u8.tobytes())
-    log(f"capture: {nb_frames} frames, {NB_SERVICES} services x 48 CU "
-        f"EEP-3A, CFO {CFO_BINS} carriers, SNR {SNR_DB} dB, "
+    log(f"capture {variant}: {nb_frames} frames, {NB_SERVICES} services x 48 "
+        f"CU EEP-3A, CFO {cfo_bins:.2f} carriers, SNR {SNR_DB} dB, "
         f"{os.path.getsize(path)} bytes u8 (transmitter {t_tx:.2f} s)")
     return {sid: src.sent for sid, src in sources.items()}
+
+
+def make_captures(dev, nb_frames=NB_FRAMES, count=FLEET_DISTINCT):
+    """`count` distinct captures -> ([path], [{service_id: sent AU list}])."""
+    paths = [os.path.join(WORK, f"capture{k}_{nb_frames}.u8")
+             for k in range(count)]
+    return paths, [make_capture(dev, path, nb_frames, k)
+                   for k, path in enumerate(paths)]
 
 
 def _read_adts(path):
@@ -328,6 +379,19 @@ def _read_adts(path):
         aus.append(data[i + 7:i + n])
         i += n
     return aus
+
+
+def _check_aus(adts_path, aus_sent, what):
+    """The access units of an ADTS file are a run of those sent, byte for
+    byte; returns their count."""
+    check(os.path.exists(adts_path), f"{what}: no scraper output")
+    got = _read_adts(adts_path)
+    check(got, f"{what}: no access units")
+    check(got[0] in aus_sent, f"{what}: unknown access unit")
+    k = aus_sent.index(got[0])
+    check(got == aus_sent[k:k + len(got)],
+          f"{what}: access units differ from those sent")
+    return len(got)
 
 
 def _run_capturing_stderr(fn, echo=True):
@@ -351,16 +415,15 @@ def _run_capturing_stderr(fn, echo=True):
     return rc, text
 
 
-def main_path(dev, sent):
+def main_path(dev, capture, sent):
     """radio_cli on the capture; checks the decode and the kernel counts."""
     import torch
     from dab_radio_tpu_torch.apps import radio_cli
     from dab_radio_tpu_torch.kernels import viterbi_acs as K
     scrape = os.path.join(WORK, "scrape")
     shutil.rmtree(scrape, ignore_errors=True)
-    argv = ["-i", os.path.join(WORK, "capture.u8"), "-F", "u8", "--benchmark",
-            "--backend", "cuda", "--scraper-enable", "--scraper-output",
-            scrape]
+    argv = ["-i", capture, "-F", "u8", "--benchmark", "--backend", "cuda",
+            "--scraper-enable", "--scraper-output", scrape]
     K.reset_launches()
     t0 = time.perf_counter()
     rc, err_text = _run_capturing_stderr(lambda: radio_cli.main(argv))
@@ -396,13 +459,8 @@ def main_path(dev, sent):
     for sid, aus_sent in sent.items():
         dirs = glob.glob(os.path.join(scrape, f"service_{sid:X}_*"))
         check(len(dirs) == 1, f"no scraper output for service {sid:X}")
-        got = _read_adts(os.path.join(dirs[0], "stream.aac"))
-        check(got, f"service {sid:X}: no access units")
-        check(got[0] in aus_sent, f"service {sid:X}: unknown access unit")
-        k = aus_sent.index(got[0])
-        check(got == aus_sent[k:k + len(got)],
-              f"service {sid:X}: access units differ from those sent")
-        nb_aus += len(got)
+        nb_aus += _check_aus(os.path.join(dirs[0], "stream.aac"), aus_sent,
+                             f"service {sid:X}")
 
     check(by_t.get(774, 0) > 0, "the FIC decode did not run a Viterbi kernel")
     check(by_t.get(1542, 0) > 0, "the MSC decode did not run a Viterbi kernel")
@@ -461,6 +519,194 @@ def long_path(dev):
     return launches
 
 
+class _FleetTimers:
+    """While active, times every FusedFleet round of this process: the host
+    wall of process_round, CUDA events around the round's device step, and
+    the host's byte-layer time (_consume); and counts the kernel launches
+    of each round's step."""
+
+    def __init__(self):
+        self.round_wall_s, self.consume_s, self.step_events = [], [], []
+        self.step_launches = []     # per round: (kernel counts, counts by T)
+
+    def __enter__(self):
+        import torch
+        from dab_radio_tpu_torch.kernels import viterbi_acs as K
+        from dab_radio_tpu_torch.models.fused_fleet import FusedFleet
+        self._cls = FusedFleet
+        self._saved = (FusedFleet.process_round, FusedFleet._consume)
+        process_round, consume = self._saved
+        timers = self
+
+        def timed_step(inner):
+            def step(*args):
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                before = dict(K.LAUNCHES), dict(K.ACS_LAUNCHES_BY_T)
+                start.record()
+                out = inner(*args)
+                end.record()
+                timers.step_events.append((start, end))
+                timers.step_launches.append(tuple(
+                    {k: v - was.get(k, 0) for k, v in now.items()
+                     if v != was.get(k, 0)}
+                    for now, was in zip((K.LAUNCHES, K.ACS_LAUNCHES_BY_T),
+                                        before)))
+                return out
+            step.__dict__.update(inner.__dict__)
+            step.timed = True
+            return step
+
+        def timed_round(fleet, *args, **kw):
+            if not getattr(fleet.step, "timed", False):
+                fleet.step = timed_step(fleet.step)
+            t0 = time.perf_counter()
+            process_round(fleet, *args, **kw)
+            timers.round_wall_s.append(time.perf_counter() - t0)
+
+        def timed_consume(fleet, *args):
+            t0 = time.perf_counter()
+            consume(fleet, *args)
+            timers.consume_s.append(time.perf_counter() - t0)
+
+        FusedFleet.process_round = timed_round
+        FusedFleet._consume = timed_consume
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.process_round, self._cls._consume = self._saved
+
+    def step_ms(self):
+        import torch
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.step_events]
+
+
+def _serve(argv):
+    """fleet_serve.main(argv) with its stdout captured -> (JSON lines,
+    stderr text, timers, launch counts, forward passes by T, wall s)."""
+    import contextlib
+    import io
+    import torch
+    from dab_radio_tpu_torch.apps import fleet_serve
+    from dab_radio_tpu_torch.kernels import viterbi_acs as K
+    out = io.StringIO()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    with _FleetTimers() as timers, contextlib.redirect_stdout(out):
+        rc, err_text = _run_capturing_stderr(lambda: fleet_serve.main(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, by_t = dict(K.LAUNCHES), dict(K.ACS_LAUNCHES_BY_T)
+    check(rc == 0, f"fleet_serve returned {rc}")
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines()]
+    return lines, err_text, timers, launches, by_t, wall
+
+
+def _check_streams(lines, scrape, sent_of_stream):
+    """The stream lines and the scraper tree of a fleet_serve run against
+    what was sent; returns the access units checked."""
+    nb_streams = len(sent_of_stream)
+    check(len(lines) == nb_streams + 1,
+          f"{len(lines)} stdout lines for {nb_streams} streams")
+    nb_aus = 0
+    for b, (row, sent) in enumerate(zip(lines, sent_of_stream)):
+        check(row["stream"] == b and row["ensemble"] == "C0FE"
+              and len(row["services"]) == NB_SERVICES,
+              f"stream {b} not decoded: {row}")
+        check(row["fib_ok"] > 0, f"stream {b}: no valid FIB in the last round")
+        for s in range(NB_SERVICES):
+            nb_aus += _check_aus(
+                os.path.join(scrape, f"stream_{b}", f"subchannel_{s}",
+                             "stream.aac"),
+                sent[0xF123 + s], f"stream {b} subchannel {s}")
+    total = lines[-1]
+    check(total["streams"] == nb_streams and total["access_units"] == nb_aus,
+          f"totals {total} against {nb_aus} access units on disk")
+    return nb_aus
+
+
+def fleet_path(dev, paths, sents):
+    """fleet_serve on 16 streams of the 18-service ensemble, 8 frames a
+    round: every access unit byte-exact, one fused Viterbi launch a round."""
+    scrape = os.path.join(WORK, "fleet_scrape")
+    shutil.rmtree(scrape, ignore_errors=True)
+    order = [k % len(paths) for k in range(FLEET_STREAMS)]
+    layout = ",".join(f"{48 * i}:48:EEP3A" for i in range(NB_SERVICES))
+    argv = ["-i", *[paths[k] for k in order], "--subchannels", layout,
+            "--frames-per-step", str(FLEET_K), "--scraper-output", scrape,
+            "--backend", "cuda"]
+    lines, _, timers, launches, by_t, wall = _serve(argv)
+    rounds = lines[-1]["rounds"]
+    check(rounds == (NB_FRAMES - 1) // FLEET_K, f"{rounds} rounds")
+    nb_aus = _check_streams(lines, scrape, [sents[k] for k in order])
+    check(launches == {"viterbi_decode_fused": rounds, "viterbi_acs": 0,
+                       "viterbi_chainback": 0} and by_t == {1542: rounds}
+          and timers.step_launches
+          == [({"viterbi_decode_fused": 1}, {1542: 1})] * rounds,
+          f"not one fused launch a round at T=1542: {launches} by T {by_t}, "
+          f"by round {timers.step_launches}")
+    step_ms = timers.step_ms()
+    air = FLEET_STREAMS * FLEET_K * 0.096
+    warm = timers.round_wall_s[-1]
+    log(f"fleet path: streams={FLEET_STREAMS} ({len(paths)} distinct) "
+        f"rounds={rounds} frames/round={FLEET_K} lanes/round={FLEET_LANES} "
+        f"access_units={nb_aus} (all byte-exact) wall={wall:.3f} s "
+        f"launches={launches} by T={by_t}")
+    log("fleet path: round wall s = "
+        + json.dumps([round(x, 4) for x in timers.round_wall_s])
+        + " (a round's wall holds the byte layer of the round before)")
+    log("fleet path: device step ms = "
+        + json.dumps([round(x, 3) for x in step_ms])
+        + ", host consume s = "
+        + json.dumps([round(x, 4) for x in timers.consume_s]))
+    log(f"fleet path: warm round wall {warm:.4f} s for {air:.3f} s of air: "
+        f"real-time ensembles = {air / warm:.3f}")
+    return launches
+
+
+def discovery_path(dev, paths, sents):
+    """fleet_serve --discover on 2 distinct captures, 4 frames a round: the
+    layouts come from the dynamic receiver, one row a stream."""
+    scrape = os.path.join(WORK, "discover_scrape")
+    shutil.rmtree(scrape, ignore_errors=True)
+    argv = ["-i", *paths[:DISCOVER_STREAMS], "--discover",
+            "--frames-per-step", str(DISCOVER_K), "--scraper-output", scrape,
+            "--backend", "cuda"]
+    lines, _, timers, launches, by_t, wall = _serve(argv)
+    rounds = lines[-1]["rounds"]
+    check(rounds == (NB_FRAMES - 1) // DISCOVER_K, f"{rounds} rounds")
+    nb_aus = _check_streams(lines, scrape, sents[:DISCOVER_STREAMS])
+    # the dynamic pass before the rounds decodes frame by frame (T=774 and
+    # T=1542), so the rounds are counted step by step
+    check(timers.step_launches
+          == [({"viterbi_decode_fused": 1}, {1542: 1})] * rounds
+          and launches["viterbi_acs"] == 0
+          and launches["viterbi_chainback"] == 0,
+          f"not one fused launch a round at T=1542: {timers.step_launches}, "
+          f"in all {launches} by T {by_t}")
+    log(f"discovery path: streams={DISCOVER_STREAMS} rounds={rounds} "
+        f"frames/round={DISCOVER_K} access_units={nb_aus} (all byte-exact) "
+        f"wall={wall:.3f} s launches={launches} by T={by_t} round wall s = "
+        + json.dumps([round(x, 4) for x in timers.round_wall_s]))
+    return launches
+
+
+def _device_profile(tp, wall_s):
+    """(device time ms, busy share of wall_s, top 12 kernels) of a finished
+    torch.profiler run."""
+    import torch
+    rows = [e for e in tp.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+    total_us = sum(dev_us(e) for e in rows)
+    rows.sort(key=dev_us, reverse=True)
+    return (total_us / 1e3, total_us / 1e6 / wall_s,
+            [{"name": e.key[:80], "calls": e.count, "ms": dev_us(e) / 1e3}
+             for e in rows[:12]])
+
+
 def measure(dev, nb_frames):
     """Times of the main path on nb_frames frames: see the module docstring."""
     import torch
@@ -468,9 +714,8 @@ def measure(dev, nb_frames):
     from dab_radio_tpu_torch.apps import radio_cli
     from dab_radio_tpu_torch.kernels import viterbi_acs as K
     from dab_radio_tpu_torch.utils.profiler import get_profiler
-    path = os.path.join(WORK, f"capture_{nb_frames}.u8")
-    make_capture(dev, path, nb_frames)
-    argv = ["-i", path, "-F", "u8", "--benchmark", "--backend", "cuda"]
+    paths, _ = make_captures(dev, nb_frames)
+    argv = ["-i", paths[0], "-F", "u8", "--benchmark", "--backend", "cuda"]
     air = nb_frames * 0.096
 
     def run():
@@ -496,20 +741,97 @@ def measure(dev, nb_frames):
     out["spans"] = prof.table()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
         out["profiled_wall_s"] = run()
-    rows = [e for e in tp.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0))
-    total_us = sum(dev_us(e) for e in rows)
-    out["device_time_ms"] = total_us / 1e3
-    out["device_busy_share"] = total_us / 1e6 / out["profiled_wall_s"]
-    rows.sort(key=dev_us, reverse=True)
-    out["kernels"] = [{"name": e.key[:80], "calls": e.count,
-                       "ms": dev_us(e) / 1e3} for e in rows[:12]]
+    (out["device_time_ms"], out["device_busy_share"],
+     out["kernels"]) = _device_profile(tp, out["profiled_wall_s"])
+    out["fleet"] = measure_fleet(dev, paths)
     for k, v in out.items():
         log(f"measure: {k} = {json.dumps(v)}")
     with open(os.path.join(WORK, "measure.json"), "w") as f:
         json.dump(out, f, indent=1)
+
+
+def measure_fleet(dev, paths):
+    """The fleet path through FusedFleet: 16 streams x 8 frames a round, one
+    cold round, then 5 warm rounds under torch.profiler, then the round's
+    stop_after ladder (each prefix 3 times, fenced by a fetch of its
+    digest). Needs captures of at least 6 * 8 + 1 frames."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dab_radio_tpu_torch.kernels import viterbi_acs as K
+    from dab_radio_tpu_torch.models.fused_fleet import FusedFleet
+    from dab_radio_tpu_torch.parallel.mesh import STOP_AFTER, receiver_step
+    from dab_radio_tpu_torch.params import SubchannelConfig
+    cfgs = [SubchannelConfig(48 * i, 48, False, eep_type="A", eep_prot_level=2)
+            for i in range(NB_SERVICES)]
+    fleet = FusedFleet(FLEET_STREAMS, cfgs, 1, FLEET_K, device=dev)
+    chunk, tb = 2 * fleet.round_samples, fleet.tail_bytes
+    streams = []
+    for path in paths:
+        u8 = np.fromfile(path, np.uint8)
+        off = fleet.find_alignment(u8[:2 * 4 * fleet.fs])
+        check(off is not None, f"no frame sync in {path}")
+        streams.append(u8[off:])
+    streams = [streams[k % len(paths)] for k in range(FLEET_STREAMS)]
+    nb_rounds = min(s.shape[0] - tb for s in streams) // chunk
+    check(nb_rounds >= 6, f"captures hold {nb_rounds} rounds, 6 are needed")
+
+    def round_at(r):
+        return (np.stack([s[r * chunk:(r + 1) * chunk] for s in streams]),
+                np.stack([s[(r + 1) * chunk:(r + 1) * chunk + tb]
+                          for s in streams]))
+
+    out = {"streams": FLEET_STREAMS, "frames_per_round": FLEET_K,
+           "lanes": FLEET_LANES, "air_s_per_round": FLEET_STREAMS * FLEET_K
+           * 0.096}
+    K.reset_launches()
+    with _FleetTimers() as timers:
+        blk, tail = round_at(0)
+        fleet.process_round(blk, defer_fetch=True, tail_u8=tail)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as tp:
+            for r in range(1, 6):
+                blk, tail = round_at(r)
+                fleet.process_round(blk, defer_fetch=True, tail_u8=tail)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fleet.flush()
+        out["round_wall_s"] = timers.round_wall_s
+        out["consume_s"] = timers.consume_s
+        out["step_ms"] = timers.step_ms()
+    out["launches"] = dict(K.LAUNCHES)
+    out["warm_wall_s_per_round"] = wall / 5
+    out["realtime_ensembles"] = out["air_s_per_round"] / (wall / 5)
+    out["access_units"] = fleet.total_aus
+    check(fleet.total_aus > 0 and min(fleet.last_fib_ok) > 0,
+          "the measured fleet did not decode")
+    (out["device_time_ms_per_round"], out["device_busy_share"],
+     out["kernels_5_rounds"]) = _device_profile(tp, wall)
+    out["device_time_ms_per_round"] /= 5
+
+    blk, tail = (torch.as_tensor(x, device=dev) for x in round_at(1))
+    ladder = {}
+    for stop in STOP_AFTER[1:] + (None,):
+        step, (carry, hist, _) = receiver_step(
+            dev, 1, FLEET_K, subchannels_per_shard=NB_SERVICES,
+            ensembles_per_shard=FLEET_STREAMS, ingest="u8",
+            subchannel_cfgs=cfgs, fuse_fic=True, stop_after=stop)
+
+        def run():
+            res = step(carry, hist, blk, tail)[2]
+            # the fetch of one scalar waits for the whole prefix
+            float(res["digest"] if stop else res["msc_err"].sum())
+        run()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ladder[stop or "full"] = times
+    out["stop_after_ms"] = ladder
+    return out
 
 
 def main():
@@ -531,10 +853,24 @@ def main():
     if args.measure:
         measure(dev, args.frames)
         return 0
-    timings = check_kernels(dev)
-    sent = make_capture(dev, os.path.join(WORK, "capture.u8"))
+    phases = []
+
+    def phase(name, fn, *a):
+        t0 = time.perf_counter()
+        res = fn(*a)
+        phases.append((name, time.perf_counter() - t0))
+        log(f"phase {name}: {phases[-1][1]:.2f} s")
+        return res
+
+    timings = phase("kernels", check_kernels, dev)
+    paths, sents = phase("captures", make_captures, dev)
     # each path's counts were set to 0 just before it and read just after
-    launches = {"main": main_path(dev, sent), "long": long_path(dev)}
+    launches = {"main": phase("main", main_path, dev, paths[0], sents[0]),
+                "long": phase("long", long_path, dev),
+                "fleet": phase("fleet", fleet_path, dev, paths, sents),
+                "discovery": phase("discovery", discovery_path, dev, paths,
+                                   sents)}
+    log("phases: " + ", ".join(f"{n} {t:.2f} s" for n, t in phases))
     from dab_radio_tpu_torch.host.native import native_status
     log("host native libraries: " + ", ".join(
         f"{k}={v}" for k, v in native_status().items()))

@@ -10,6 +10,7 @@ so either package can resume where the other stopped:
   sd.restore(demod_state_from_jax(jax_sd.snapshot()))
   dec = MSCDecoder.__new__(MSCDecoder)
   dec.__setstate__(msc_state_from_jax(jax_dec.__getstate__(), dev))
+  fleet.load_state(*fused_state_from_jax(jax_fleet._carry, jax_fleet._hist))
 """
 
 import dataclasses
@@ -55,3 +56,17 @@ def msc_state_from_jax(state: dict, device="cpu") -> dict:
             "nb_pushed": int(state["nb_pushed"]),
             "history": np.asarray(state["history"], np.int8),
             "device": str(device)}
+
+
+def fused_state_from_jax(carry, hist):
+    """The state of the JAX fused round (``multichip_receiver_step`` on a
+    mesh whose 'time' axis is 1) -> the port's, as numpy: the DemodCarry's
+    six leaves of shape (B, 1) in the port's field types, and the
+    deinterleaver history (B, S, 16, nb_sub_bits) int8. Feed the result to
+    ``FusedFleet.load_state`` or ``DemodCarry.from_numpy``; both packages
+    then run the next round from the same state."""
+    leaves = [np.asarray(x).astype(dt) for x, dt in zip(carry, _CARRY_NP)]
+    if any(x.ndim != 2 or x.shape[1] != 1 for x in leaves):
+        raise ValueError("fused_state_from_jax: the carry must have leading "
+                         f"dims (B, 1), got {[x.shape for x in leaves]}")
+    return leaves, np.asarray(hist).astype(np.int8)

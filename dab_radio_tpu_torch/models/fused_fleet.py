@@ -1,0 +1,682 @@
+"""Fused serving fleet: N ensembles, one device round per call (port of
+``dab_radio_tpu/models/fused_fleet.py``).
+
+The static-configuration throughput path for serving once the subchannel
+layout is known: demodulation, FIC Viterbi, time deinterleave and MSC
+Viterbi for every stream run as one round of frames_per_step frames on the
+fleet's device (``parallel/mesh.py:receiver_step``, mixed UEP/EEP shapes
+included, one Viterbi launch a round). The decoded bits are packed to bytes
+on the device, and the host touches only the FIG and superframe byte layer.
+
+Feed rounds with ``process_round(iq)`` where iq is (N, 2 * K *
+frame_samples) raw interleaved uint8 IQ: a numpy array, or a tensor that
+already lies on the device (the feeder's staging). FIBs flow into each
+stream's DabReceiver (database, labels); superframe AUs fire
+``on_access_unit(stream, subchannel, au_index, n_aus, au, header)``.
+
+Long-running serving contract: watch ``drift_correction`` and advance the
+read grid by it (sample-clock drift re-anchor), watch ``last_fib_ok`` for
+sustained zeros and then ``resync()`` + ``find_alignment`` (hard desync
+recovery), and ``snapshot()`` / ``from_snapshot()`` to checkpoint or
+migrate. ``apps/fleet_serve.py`` implements all three loops.
+"""
+
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from ..dab.aac import SuperframeProcessor
+from ..ops.crc import crc16_check_batch
+from ..params import SubchannelConfig, get_dab_params, get_ofdm_params
+from ..utils.backend import to_device
+from .demodulator import DemodCarry, OFDMDemodulator
+from .receiver import DabReceiver
+
+
+def _cfg_from_db(sub) -> SubchannelConfig:
+    """Database Subchannel entity -> static decode config."""
+    return SubchannelConfig(
+        start_address=sub.start_address, length=sub.length,
+        is_uep=sub.is_uep, uep_table_index=sub.uep_table_index or 0,
+        eep_type=sub.eep_type or "A",
+        eep_prot_level=sub.eep_prot_level or 0)
+
+
+def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(..., 8n) 0/1 values -> (..., n) uint8, MSB first, on bits' device."""
+    w = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32,
+                     device=bits.device)
+    b = bits.to(torch.int32).reshape(*bits.shape[:-1], -1, 8)
+    return (b * w).sum(-1).to(torch.uint8)
+
+
+class _Fetch:
+    """One round's packed outputs on their way to the host.
+
+    On a CUDA device the copies go to pinned host tensors without blocking
+    and an event marks their end: ``arrays()`` waits for that event alone,
+    so the caller can do host work while the round is still on the card.
+    The pinned tensors belong to the fleet and are reused every other
+    round. On the CPU the tensors are handed over as they are."""
+
+    def __init__(self, packed, pinned):
+        self.event = None
+        if pinned is None:
+            self.host = packed
+            return
+        self.host = pinned
+        for dst, src in zip(pinned, packed):
+            dst.copy_(src, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record()
+
+    def arrays(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return [t.numpy() for t in self.host]
+
+
+class FusedFleet:
+    def __init__(self, nb_streams: int,
+                 subchannel_cfgs: List[SubchannelConfig],
+                 transmission_mode: int = 1, frames_per_step: int = 8, *,
+                 device, block_tracking: bool = False,
+                 subchannel_kinds=None, viterbi: str = "exact",
+                 chainback: str = "sequential",
+                 viterbi_branch: str = "matmul", fuse_fic: bool = True,
+                 consume_workers: int = 0):
+        from ..parallel.mesh import receiver_step
+        self.N = nb_streams
+        self.device = torch.device(device)
+        self._cfgs_arg = subchannel_cfgs
+        self._block_tracking = block_tracking
+        self._viterbi = viterbi
+        self._chainback = chainback
+        self._viterbi_branch = viterbi_branch
+        # serving default ON: the FIC lanes ride the MSC Viterbi decode, one
+        # launch a round instead of two (parallel/mesh.py, fuse_fic)
+        self._fuse_fic = fuse_fic
+        # >1 shards the host byte layer across worker threads, one job per
+        # stream (streams touch disjoint state); observers still fire on the
+        # calling thread in stream order, see _consume. Under CPython's
+        # interpreter lock this overlaps only the ctypes codec calls.
+        self._consume_workers = consume_workers
+        self._pool = None
+        if consume_workers > 1:
+            from concurrent.futures import ThreadPoolExecutor
+            self._pool = ThreadPoolExecutor(consume_workers)
+        # per-stream heterogeneity: pass a list of per-stream cfg rows and
+        # each stream decodes its OWN ensemble layout in the same round
+        per_stream = bool(subchannel_cfgs) and \
+            isinstance(subchannel_cfgs[0], (list, tuple))
+        self.S = len(subchannel_cfgs[0]) if per_stream \
+            else len(subchannel_cfgs)
+        self.K = frames_per_step
+        self._mode = transmission_mode
+        self.dab = get_dab_params(transmission_mode)
+        self.fs = get_ofdm_params(transmission_mode).nb_frame_samples
+        self.frames_per_round = frames_per_step
+        self.step, (self._carry, self._hist, _) = receiver_step(
+            self.device, transmission_mode, frames_per_shard=frames_per_step,
+            subchannels_per_shard=self.S, ensembles_per_shard=self.N,
+            ingest="u8", subchannel_cfgs=subchannel_cfgs,
+            block_tracking=block_tracking, viterbi=viterbi,
+            chainback=chainback, viterbi_branch=viterbi_branch,
+            fuse_fic=fuse_fic)
+        # per-(stream, sub) byte-layer kind: "audio" (DAB+ superframes),
+        # "mp2" (classic DAB: each logical frame IS one MP2 frame, fired
+        # via on_mp2_frame + optional PCM decode), or ("packet",
+        # packet_address, fec_scheme) for packet-mode data subchannels.
+        # `subchannel_kinds` mirrors subchannel_cfgs' shape (flat list
+        # shared by all streams, or per-stream rows); None entries default
+        # to "audio".
+        def kind_row(row):
+            row = list(row) if row is not None else []
+            row += [None] * (self.S - len(row))
+            return ["audio" if k is None else k for k in row]
+        if subchannel_kinds is None:
+            self._kinds = [kind_row(None)] * self.N
+        elif subchannel_kinds and \
+                isinstance(subchannel_kinds[0], (list, tuple)) and not (
+                    len(subchannel_kinds[0]) and
+                    subchannel_kinds[0][0] == "packet"):
+            self._kinds = [kind_row(r) for r in subchannel_kinds]
+        else:
+            self._kinds = [kind_row(subchannel_kinds)] * self.N
+        self.receivers = [DabReceiver(transmission_mode, device=self.device)
+                          for _ in range(self.N)]
+        self.on_access_unit: List[Callable] = []
+        self.on_audio_data: List[Callable] = []   # (stream, sub, pcm, rate, nch)
+        self.on_data_group: List[Callable] = []   # (stream, sub, DataGroupResult)
+        self.on_mp2_frame: List[Callable] = []    # (stream, sub, frame bytes)
+        self._audio_enabled = set()               # (stream, sub) pairs
+        self._decoders = {}                       # (stream, sub) -> decoder
+        self._sfp = self._make_procs()
+        self.total_rounds = 0
+        self.total_aus = 0
+        self.total_data_groups = 0
+        self.total_mp2_frames = 0
+
+        nbl = self.step.msc_nb_data_bits
+        self._nbytes = [[n // 8 for n in
+                         (nbl[b] if self.step.per_stream else nbl)]
+                        for b in range(self.N)]
+        self._pending: Optional[_Fetch] = None
+        self._pinned = [None, None]    # the fetches' host tensors, in turns
+        self._init_state = (self._carry, self._hist)
+        self.last_frame_offsets = np.zeros(self.N, np.int64)
+        self.last_fib_ok = np.zeros(self.N, np.int64)
+        self.materialized_rounds = 0   # rounds whose results reached host
+
+    def _make_procs(self):
+        """Fresh per-(stream, sub) byte-layer processors: superframe
+        decoders for audio subchannels, packet processors (with RS FEC
+        when the FIG 0/14 scheme says so) for packet-mode data."""
+        from ..dab.packets import PacketProcessor
+        procs = []
+        for b in range(self.N):
+            row = []
+            for s in range(self.S):
+                k = self._kinds[b][s]
+                if k == "audio":
+                    row.append(SuperframeProcessor())
+                elif k == "mp2":
+                    row.append(None)          # frames fire directly
+                else:
+                    _, addr, fec = k
+                    # data groups reach observers via _stream_job's
+                    # collector + _fire; the proc's own list stays free
+                    # for direct subscribers
+                    row.append(PacketProcessor(addr or 0,
+                                               use_fec=(fec == 1)))
+            procs.append(row)
+        return procs
+
+    # ---- the device state, as numpy ----
+
+    def state(self):
+        """(carry leaves, deinterleaver history) as numpy arrays: the six
+        DemodCarry fields of shape (N, 1) and the (N, S, 16, nb_sub_bits)
+        int8 history."""
+        return self._carry.numpy(), self._hist.cpu().numpy()
+
+    def load_state(self, carry, hist):
+        """Inverse of state(); raises if the shapes are not this fleet's."""
+        ref = [tuple(x.shape) for x in (*self._init_state[0],
+                                        self._init_state[1])]
+        got = [np.asarray(x).shape for x in (*carry, hist)]
+        if ref != got:
+            raise ValueError(
+                "the state does not fit this fleet's round (streams, "
+                f"subchannel width or time axis differ): {ref} vs {got}")
+        self._carry = DemodCarry.from_numpy(carry, self.device)
+        self._hist = to_device(np.asarray(hist, np.int8), self.device)
+
+    # ---- checkpoint/resume ----
+
+    def snapshot(self) -> bytes:
+        """Serialize the full serving-fleet decode state: the device
+        carry and deinterleaver history (as numpy), every stream's
+        receiver database, the byte-layer superframe/packet sync state,
+        and the counters. A deferred round is consumed first. The device,
+        observers (on_access_unit etc.) and codec handles are NOT
+        captured: from_snapshot takes the target device, and sinks and
+        audio re-attach after."""
+        import pickle
+        self.flush()
+        carry, hist = self.state()
+        # processor callback lists (the packet relays are closures) are
+        # excluded by PacketProcessor/MOTProcessor.__getstate__
+        return pickle.dumps({
+            "mode": self._mode, "N": self.N, "K": self.K,
+            "cfgs": self._cfgs_arg, "kinds": self._kinds,
+            "block_tracking": self._block_tracking,
+            "viterbi": self._viterbi,
+            "chainback": self._chainback,
+            "viterbi_branch": self._viterbi_branch,
+            "fuse_fic": self._fuse_fic,
+            "carry": carry, "hist": hist,
+            "receivers": self.receivers, "sfp": self._sfp,
+            "counters": (self.total_rounds, self.total_aus,
+                         self.total_data_groups, self.total_mp2_frames),
+            # signal-health state: a resumed serving loop must see the
+            # same drift/desync signals an uninterrupted one would
+            "health": (self.last_frame_offsets, self.last_fib_ok,
+                       self.materialized_rounds),
+        })
+
+    @classmethod
+    def from_snapshot(cls, blob: bytes, device,
+                      consume_workers: int = 0) -> "FusedFleet":
+        """Rebuild a serving fleet from snapshot() on `device` (the device
+        is not part of the snapshot). The resumed decode is byte-identical
+        to an uninterrupted run."""
+        import pickle
+        d = pickle.loads(blob)
+        fleet = cls(d["N"], d["cfgs"], transmission_mode=d["mode"],
+                    frames_per_step=d["K"], device=device,
+                    block_tracking=d["block_tracking"],
+                    subchannel_kinds=d["kinds"], viterbi=d["viterbi"],
+                    chainback=d["chainback"],
+                    viterbi_branch=d["viterbi_branch"],
+                    fuse_fic=d["fuse_fic"], consume_workers=consume_workers)
+        fleet.load_state(d["carry"], d["hist"])
+        fleet.receivers = d["receivers"]
+        for rx in fleet.receivers:     # pickled with the device it ran on
+            rx.device = fleet.device
+        fleet._sfp = d["sfp"]
+        for row in fleet._sfp:
+            for p in row:
+                # observer lists are stripped by __getstate__; restore the
+                # empty list the collector in _stream_job appends to
+                if p is not None and hasattr(p, "on_data_group"):
+                    p.on_data_group = []
+        (fleet.total_rounds, fleet.total_aus,
+         fleet.total_data_groups, fleet.total_mp2_frames) = d["counters"]
+        (fleet.last_frame_offsets, fleet.last_fib_ok,
+         fleet.materialized_rounds) = d["health"]
+        return fleet
+
+    def reset(self):
+        """Restart decode state: device carry and deinterleaver history AND
+        the host byte layer (receiver databases, superframe/packet sync,
+        audio decoders, counters), keeping the round's tables and the
+        registered callbacks. Used to retune a serving fleet to a new
+        capture or frequency."""
+        self._carry, self._hist = self._init_state
+        self.receivers = [DabReceiver(self._mode, device=self.device)
+                          for _ in range(self.N)]
+        self._sfp = self._make_procs()
+        for dec in self._decoders.values():
+            dec.close()
+        self._decoders = {}
+        self._pending = None
+        self.last_frame_offsets = np.zeros(self.N, np.int64)
+        self.last_fib_ok = np.zeros(self.N, np.int64)
+        self.materialized_rounds = 0
+        self.total_rounds = 0
+        self.total_aus = 0
+        self.total_data_groups = 0
+        self.total_mp2_frames = 0
+
+    @classmethod
+    def from_receiver(cls, receiver, nb_streams: int = None,
+                      **kw) -> "FusedFleet":
+        """Discovery -> serving handoff: build the static fused round from
+        the subchannel layout a (dynamic) DabReceiver discovered via FIC,
+        or from a LIST of receivers, one per stream, for per-stream
+        ensemble layouts. The deployment flow is: run the dynamic path
+        until the database completes, then switch the hot loop to the
+        fused round (decode state restarts; databases carry over)."""
+        from ..dab.database import AUDIO_DAB, PACKET_DATA, STREAM_AUDIO
+
+        def row(rx):
+            return [_cfg_from_db(rx.db.subchannels[k])
+                    for k in sorted(rx.db.subchannels)]
+
+        def kinds(rx):
+            out = []
+            for k in sorted(rx.db.subchannels):
+                comp = rx.db.component_by_subchannel(k)
+                sub = rx.db.subchannels[k]
+                if comp is not None and comp.transport_mode == PACKET_DATA:
+                    out.append(("packet", comp.packet_address or 0,
+                                sub.fec_scheme or 0))
+                elif (comp is not None
+                      and comp.transport_mode == STREAM_AUDIO
+                      and comp.audio_service_type == AUDIO_DAB):
+                    out.append("mp2")
+                else:
+                    out.append("audio")
+            return out
+        if isinstance(receiver, (list, tuple)):
+            rxs = list(receiver)
+            fleet = cls(nb_streams or len(rxs), [row(r) for r in rxs],
+                        subchannel_kinds=[kinds(r) for r in rxs], **kw)
+            for b, r in enumerate(rxs):
+                fleet.receivers[b].updater = r.updater
+        else:
+            fleet = cls(nb_streams or 1, row(receiver),
+                        subchannel_kinds=kinds(receiver), **kw)
+            fleet.receivers[0].updater = receiver.updater
+        return fleet
+
+    @property
+    def round_samples(self) -> int:
+        return self.frames_per_round * self.fs
+
+    def find_alignment(self, iq_u8_row) -> Optional[int]:
+        """Cold-start alignment: null-dip acquisition + one probe frame
+        over one stream's raw u8 IQ. Returns the BYTE offset of the first
+        whole frame (slice the stream there and feed frame-aligned rounds
+        to process_round; the fused round tracks drift once locked but
+        its rounds must start on a frame boundary), or None if no frame
+        sync was found in the block."""
+        if not hasattr(self, "_align_demod"):
+            self._align_demod = OFDMDemodulator(self._mode,
+                                                device=self.device)
+        d = self._align_demod
+        p = d.params
+        u = np.asarray(iq_u8_row, np.uint8).astype(np.float32)
+        c64 = (((u[0::2] - 127.5) + 1j * (u[1::2] - 127.5)) / 127.5
+               ).astype(np.complex64)
+        if c64.shape[0] < d.window_len:
+            return None
+        x = to_device(c64, self.device)
+        l1 = d.l1(x[:d.window_len])
+        rewind = 2 * d.cfg.null_search_nb_samples
+        ptr = 0
+        while ptr + d.window_len <= c64.shape[0]:
+            found, end = d.acquire(x[ptr:ptr + d.window_len], l1)
+            if bool(found):
+                null_start = max(
+                    ptr + int(end) - p.nb_null_period - rewind, ptr)
+                if null_start + d.window_len > c64.shape[0]:
+                    return None
+                carry = DemodCarry.init(device=self.device)._replace(
+                    signal_l1_avg=l1)
+                _, out = d.frame_step(
+                    carry, x[null_start:null_start + d.window_len])
+                if not bool(out["sync_ok"]):
+                    return None
+                return 2 * (null_start + int(out["offset"]))
+            ptr += d.window_len - p.nb_null_period
+        return None
+
+    @property
+    def tail_bytes(self) -> int:
+        """u8 bytes of the NEXT round's head to pass as process_round's
+        tail (2 bytes per sample; feeds the final frame's timing margin)."""
+        return 2 * self.step.tail_samples
+
+    def process_round(self, iq_u8, defer_fetch: bool = False, tail_u8=None):
+        """One K-frame round for all N streams. iq_u8: (N, 2*K*fs) uint8
+        (numpy, or a tensor on the device). tail_u8: (N, tail_bytes), the
+        stream bytes that FOLLOW this round (next round's head); without it
+        the final frame's timing margin reads zeros, which corrupts that
+        frame whenever sample-clock drift pushes the fine-time offset
+        positive (omit only at end of stream). With defer_fetch, the
+        previous round's byte layer is consumed while this round runs on
+        the device (one round of latency: on a CUDA device the round is
+        only queued here, and its outputs are fetched behind an event)."""
+        self._carry, self._hist, out = self.step(
+            self._carry, self._hist, iq_u8, tail_u8)
+        # the bit packing stays on the device: 8x fewer bytes to fetch
+        packed = (_pack_bits(out["fib_bits"]), _pack_bits(out["msc_bits"]),
+                  out["offsets"][:, -1])
+        fetch = _Fetch(packed, self._pinned_for(packed))
+        if defer_fetch:
+            prev, self._pending = self._pending, fetch
+            if prev is not None:
+                self._materialize(prev)
+        else:
+            self._materialize(fetch)
+        self.total_rounds += 1
+
+    def _pinned_for(self, packed):
+        """This round's pinned host tensors (CUDA only): two sets used in
+        turns, since the previous round's may still be pending."""
+        if self.device.type != "cuda":
+            return None
+        k = self.total_rounds % 2
+        if self._pinned[k] is None:
+            self._pinned[k] = [torch.empty(t.shape, dtype=t.dtype,
+                                           pin_memory=True) for t in packed]
+        return self._pinned[k]
+
+    def _materialize(self, fetch: _Fetch):
+        fib, msc, offs = fetch.arrays()
+        self.last_frame_offsets = offs.astype(np.int64)
+        self._consume(fib, msc)
+        self.materialized_rounds += 1
+
+    @property
+    def drift_correction(self) -> np.ndarray:
+        """Per-stream sample-clock re-anchor hint: each stream's FINAL
+        frame fine-time offset from the most recently materialized round
+        (one round stale under defer_fetch; drift is slow). A long-running
+        server must advance its read grid by this many SAMPLES (2x bytes
+        of u8 IQ) when the magnitude grows past noise (~16): the fused
+        window only absorbs [-CP, +one symbol] = [-504, +2552] of
+        accumulated drift in mode I, which a real SDR's ~20 ppm clock
+        error (~41 samples/s) exhausts in about a minute. This is the
+        serving analog of the dynamic path's per-frame pointer advance
+        (StreamingDemodulator: pos += offset). fleet_serve applies it
+        automatically with a 2-round cooldown. Desynced frames report 0
+        (no correction): a noise burst must not move the grid."""
+        return self.last_frame_offsets
+
+    def resync(self):
+        """Hard re-acquisition: reset the DEVICE decode state (demod sync
+        carry and deinterleaver history) while keeping databases,
+        byte-layer processors, codecs and counters. Call after re-aligning
+        the stream (find_alignment) when the signal was lost outright
+        (retune, deep fade): the stale carry's coarse-CFO/timing estimates
+        would otherwise fight the new signal. Superframe/packet sync
+        machines re-sync themselves; the 16-CIF deinterleaver warm-up
+        garbage is CRC-gated as usual."""
+        self._carry, self._hist = self._init_state
+        self._pending = None
+        self.last_frame_offsets = np.zeros(self.N, np.int64)
+        self.last_fib_ok = np.zeros(self.N, np.int64)
+        self.materialized_rounds = 0
+
+    def flush(self):
+        """Consume any round still deferred."""
+        if self._pending is not None:
+            prev, self._pending = self._pending, None
+            self._materialize(prev)
+
+    # ---- host byte layer -------------------------------------------------
+
+    def _consume(self, fib_bytes: np.ndarray, msc_bytes: np.ndarray):
+        B, F, G, nbytes = fib_bytes.shape
+        fibs = fib_bytes.reshape(B, F, -1, 32)
+        ok = crc16_check_batch(fibs.reshape(-1, 32)) \
+            .reshape(B, F, fibs.shape[2])
+        # per-stream signal-health metric for the serving loop's desync
+        # detector: valid FIBs in this round (a locked stream passes
+        # nearly all; a desynced/retuned one passes none)
+        self.last_fib_ok = ok.reshape(B, -1).sum(axis=1)
+        if self._pool is None:
+            for b, events in enumerate(
+                    self._consume_batched(fibs, ok, msc_bytes)):
+                self._fire(b, events)
+        else:
+            # streams are independent (disjoint receivers / processors /
+            # decoders), so the heavy byte work runs in the pool; events
+            # fire here, serialized in stream order, so observers keep
+            # the single-threaded contract
+            futs = [self._pool.submit(self._stream_job, b, fibs, ok,
+                                      msc_bytes) for b in range(self.N)]
+            # every job runs to completion (its stream's decode state has
+            # advanced); fire all successful streams' events in order so
+            # observers never lose a round another stream's failure
+            # already consumed, THEN surface the first error
+            first_err = None
+            for b, fut in enumerate(futs):
+                try:
+                    self._fire(b, fut.result())
+                except Exception as e:            # noqa: BLE001
+                    first_err = first_err or e
+            if first_err is not None:
+                raise first_err
+
+    def _ingest_fibs(self, b, fibs, ok):
+        for f in range(fibs.shape[1]):
+            self.receivers[b].ingest_fibs(
+                [bytes(fib[:30]) for fib, o
+                 in zip(fibs[b, f], ok[b, f]) if o])
+
+    def _other_kinds(self, b, s, msc_bytes):
+        """One round of an mp2 or packet subchannel -> its events."""
+        nb = self._nbytes[b][s]
+        C = msc_bytes.shape[2]
+        if self._kinds[b][s] == "mp2":
+            events = []
+            for c in range(C):
+                payload = msc_bytes[b, s, c][:nb].tobytes()
+                pcm = self._decode_mp2(b, s, payload) \
+                    if (b, s) in self._audio_enabled else None
+                events.append(("mp2", s, payload, pcm))
+            return events
+        # packet mode: collect data groups instead of letting the relay
+        # fire observers from a worker thread
+        proc = self._sfp[b][s]
+        local = []
+        proc.on_data_group.append(local.append)
+        try:
+            for c in range(C):
+                proc.process(msc_bytes[b, s, c][:nb].tobytes())
+        finally:
+            proc.on_data_group.remove(local.append)
+        return [("dg", s, local)] if local else []
+
+    def _superframe_event(self, b, s, res):
+        header, aus = res
+        pcm = self._decode_audio(b, s, header, aus) \
+            if (b, s) in self._audio_enabled else None
+        return ("sf", s, header, aus, pcm)
+
+    def _consume_batched(self, fibs, ok, msc_bytes):
+        """Single-threaded consume with the round's RS decodes BATCHED:
+        audio subchannels advance in frame lockstep across every
+        (stream, sub), and whenever superframes complete, ONE
+        ReedSolomonDecoder.decode call corrects all of them together.
+        Byte-identical to the sequential path: each processor sees the
+        exact same push/finish sequence, and events are re-assembled in
+        the per-stream, subchannel-major order _stream_job produces.
+        Returns a list of per-stream event lists for _fire."""
+        from ..dab.aac import RS_MESSAGE
+        from ..ops.rs import dab_plus_rs
+        C = msc_bytes.shape[2]
+        for b in range(self.N):
+            self._ingest_fibs(b, fibs, ok)
+        ev_bs = {(b, s): [] for b in range(self.N) for s in range(self.S)}
+        audio = [bs for bs in ev_bs if self._kinds[bs[0]][bs[1]] == "audio"]
+        rs = dab_plus_rs()
+        for c in range(C):
+            done = []                     # (b, s, (n_cols, 120) codewords)
+            for b, s in audio:
+                nb = self._nbytes[b][s]
+                sf = self._sfp[b][s].push_frame(
+                    msc_bytes[b, s, c][:nb].tobytes())
+                if sf is not None:
+                    arr = np.frombuffer(sf, np.uint8).reshape(
+                        RS_MESSAGE, len(sf) // RS_MESSAGE)
+                    done.append((b, s, arr.T))
+            if not done:
+                continue
+            cw = np.concatenate([d[2] for d in done], axis=0)
+            corrected, nerr = rs.decode(cw)
+            pos = 0
+            for b, s, arr in done:
+                n_cols = arr.shape[0]
+                res = self._sfp[b][s].finish(
+                    corrected[pos:pos + n_cols], nerr[pos:pos + n_cols])
+                pos += n_cols
+                if res is not None:
+                    ev_bs[(b, s)].append(self._superframe_event(b, s, res))
+        for b, s in ev_bs:
+            if self._kinds[b][s] != "audio":
+                ev_bs[(b, s)] = self._other_kinds(b, s, msc_bytes)
+        return [[e for s in range(self.S) for e in ev_bs[(b, s)]]
+                for b in range(self.N)]
+
+    def _stream_job(self, b, fibs, ok, msc_bytes):
+        """All of stream b's byte-layer work for one round (FIB ingest,
+        superframe/packet/MP2 processing, optional audio decode) with NO
+        observer calls: events are returned for _fire. Touches only
+        stream-b state, so jobs parallelize across a thread pool."""
+        events = []
+        self._ingest_fibs(b, fibs, ok)
+        for s in range(self.S):
+            if self._kinds[b][s] != "audio":
+                events += self._other_kinds(b, s, msc_bytes)
+                continue
+            nb = self._nbytes[b][s]
+            for c in range(msc_bytes.shape[2]):
+                res = self._sfp[b][s].process_frame(
+                    msc_bytes[b, s, c][:nb].tobytes())
+                if res is not None:
+                    events.append(self._superframe_event(b, s, res))
+        return events
+
+    def _fire(self, b, events):
+        """Replay one stream's collected events through the observers and
+        counters, on the calling thread, in decode order."""
+        for ev in events:
+            if ev[0] == "sf":
+                _, s, header, aus, pcm = ev
+                self.total_aus += len(aus)
+                for i, au in enumerate(aus):
+                    for cb in self.on_access_unit:
+                        cb(b, s, i, len(aus), au, header)
+                for out in pcm or ():
+                    for cb in self.on_audio_data:
+                        cb(b, s, *out)
+            elif ev[0] == "mp2":
+                _, s, payload, pcm = ev
+                self.total_mp2_frames += 1
+                for cb in self.on_mp2_frame:
+                    cb(b, s, payload)
+                for out in pcm or ():
+                    for cb in self.on_audio_data:
+                        cb(b, s, *out)
+            else:
+                _, s, local = ev
+                for res in local:
+                    self.total_data_groups += 1
+                    for cb in self.on_data_group:
+                        cb(b, s, res)
+
+    def enable_audio(self, stream: int, sub: int):
+        """Decode this (stream, subchannel) to PCM and fire on_audio_data:
+        DAB+ AUs through HE-AAC (incl. SBR@960 and parametric stereo) or,
+        for an 'mp2' subchannel, classic DAB MP2 frames (host/codecs.py).
+        Off by default: serving deployments usually ship the bitstream
+        downstream."""
+        self._audio_enabled.add((stream, sub))
+
+    def _decode_mp2(self, b, s, frame: bytes):
+        """-> [(pcm, rate, nch), ...] for _fire (no observer calls here:
+        this may run on a consume worker thread)."""
+        from ..host.codecs import MP2Decoder
+        dec = self._decoders.get((b, s))
+        if dec is None:
+            dec = MP2Decoder()
+            self._decoders[(b, s)] = dec
+        if not dec.is_available:
+            return []
+        out = dec.decode(frame)
+        return [out] if out is not None else []
+
+    def _decode_audio(self, b, s, header, aus):
+        """-> [(pcm, rate, nch), ...] for _fire (see _decode_mp2)."""
+        from ..host.codecs import AACDecoder
+        dec = self._decoders.get((b, s))
+        if dec is None or dec.header != header:
+            if dec is not None:
+                dec.close()
+            dec = AACDecoder(header)
+            self._decoders[(b, s)] = dec
+        if not dec.is_available:
+            return []
+        outs = []
+        for au in aus:
+            out = dec.decode_au(au)
+            if out is not None:
+                outs.append(out)
+        return outs
+
+    def summary(self) -> dict:
+        return {
+            "streams": self.N,
+            "rounds": self.total_rounds,
+            "frames": self.total_rounds * self.frames_per_round * self.N,
+            "access_units": self.total_aus,
+            "data_groups": self.total_data_groups,
+            "mp2_frames": self.total_mp2_frames,
+            "services": sum(len(r.db.services) for r in self.receivers),
+        }

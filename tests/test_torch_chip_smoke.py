@@ -52,10 +52,31 @@ def test_every_counted_kernel_is_reported(smoke):
     assert K.plan(4, smoke.LONG_T)[0] == "pair"
     for _, B, T in smoke.K1_SHAPES:
         assert K.plan(B, T)[0] == "fused"
+    # each kernel's path is one whose launches the script reads
+    assert set(smoke.KERNEL_PATH.values()) <= {"main", "long", "fleet"}
+
+
+def test_fleet_rounds_shape(smoke):
+    """The fleet path's one decode a round: 16 streams x (18 subchannels x
+    32 CIFs + 32 FIC groups) messages of 1542 steps, which plans as the
+    fused kernel with 12 messages a block; its bound is 0.2556 ms, by
+    operations; the fused kernel is reported at that shape."""
+    assert smoke.FLEET_LANES == 9728
+    assert ("round16x8", 9728, 1542) in smoke.K1_SHAPES
+    assert smoke.REPORT_SHAPE["viterbi_decode_fused"] == "round16x8"
+    assert smoke.KERNEL_PATH["viterbi_decode_fused"] == "fleet"
+    route, per_block, smem = K.plan(9728, 1542)
+    assert (route, per_block, smem) == ("fused", 12, 17984)
+    assert -(-9728 // per_block) == 811
+    ms, by = smoke.bound("viterbi_decode_fused", 9728, 1542)
+    assert by == "operations" and ms == pytest.approx(0.2556, abs=5e-5)
+    # the plain version is compared in chunks that fit the card's memory
+    assert 3 * smoke.PLAIN_CHUNK * 1542 * 128 * 4 < 8e9
+    assert (smoke.NB_FRAMES - 1) // smoke.FLEET_K == 3
 
 
 @pytest.mark.parametrize("B,T", [(4, 774), (72, 1542), (1152, 1542),
-                                 (4, 41478)])
+                                 (9728, 1542), (4, 41478)])
 def test_roofline_bounds_follow_from_the_shape(smoke, B, T):
     steps = B * T
     fused_ms, fused_by = smoke.bound("viterbi_decode_fused", B, T)

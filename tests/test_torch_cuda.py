@@ -12,11 +12,13 @@ import pytest
 import torch
 
 from dab_radio_tpu_torch.dab import fic, msc
+from dab_radio_tpu_torch.host.feeder import DoubleBufferedFeeder
 from dab_radio_tpu_torch.kernels import viterbi_acs as K
 from dab_radio_tpu_torch.models.demodulator import (OFDMDemodulator,
                                                     StreamingDemodulator)
 from dab_radio_tpu_torch.models.transmitter import (EnsembleTransmitter,
                                                     ServiceSpec)
+from dab_radio_tpu_torch.parallel.mesh import receiver_step
 from dab_radio_tpu_torch.params import SubchannelConfig
 
 pytestmark = pytest.mark.cuda
@@ -169,3 +171,98 @@ def test_receive_chain_on_cuda_matches_cpu(cuda):
     # at one magnitude per symbol and flip together.
     diff = np.abs(np.stack(fg).astype(np.int16) - np.stack(fc))
     assert diff.max() <= 1 and (diff != 0).mean() <= 5e-3
+
+
+def test_fused_kernel_at_the_fleet_rounds_shape(cuda):
+    """K1 at 9728 messages of 1542 steps (16 streams x 8 frames of the
+    18-service ensemble): 12 messages a block, 811 blocks, several waves.
+    The plain version cannot hold that shape's branch metrics at once, so
+    it runs on 1216 messages at a time (messages are independent)."""
+    B, T = 9728, 1542
+    assert K.plan(B, T) == ("fused", 12, 17984)
+    dc = torch.as_tensor(_symbols(B, T), device=cuda)
+    K.reset_launches()
+    bits, err = K.decode(dc)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["viterbi_decode_fused"] == 1
+    assert K.ACS_LAUNCHES_BY_T == {T: 1}
+    for lo in range(0, B, 1216):
+        pdec, perr = K.viterbi_acs_plain(dc[lo:lo + 1216])
+        assert torch.equal(err[lo:lo + 1216], perr)
+        assert torch.equal(bits[lo:lo + 1216], K.chainback_plain(pdec))
+
+
+def test_fused_round_on_cuda_matches_cpu(cuda):
+    """The round's step on the card against the step on the CPU, on a
+    mode-II capture from the port's transmitter with a carrier offset and
+    noise: decoded bits and offsets exact, one fused launch a round; the
+    soft-bit history within the cuFFT tolerance of the test above."""
+    cfgs = [SubchannelConfig(0, 12, False, eep_type="A", eep_prot_level=2),
+            SubchannelConfig(12, 16, True, uep_table_index=0),
+            SubchannelConfig(852, 12, False, eep_type="A", eep_prot_level=2)]
+    tx = EnsembleTransmitter(2, services=[
+        ServiceSpec(0xF100 + i, i + 1, f"S{i}", c)
+        for i, c in enumerate(cfgs)], device=cuda)
+    F, fs = 4, 49152
+    iq = tx.generate(2 * F + 1)
+    rng = np.random.default_rng(4)
+    n = np.arange(iq.shape[0])
+    noise = rng.normal(size=(2, iq.shape[0])) * np.abs(iq).std() * 0.07
+    iq = iq * np.exp(2j * np.pi * 0.3 / 512 * n) + noise[0] + 1j * noise[1]
+    iq = (iq / np.abs(iq).max() * 0.5).astype(np.complex64)
+    u8 = np.clip(np.round(iq.view(np.float32) * 127.5 + 127.5), 0, 255
+                 ).astype(np.uint8)
+    u8 = np.stack([u8, np.roll(u8, 2 * F * fs)])     # 4 frames apart
+    steps = {}
+    for dev in (cuda, torch.device("cpu")):
+        steps[dev.type] = receiver_step(
+            dev, 2, F, subchannels_per_shard=3, ensembles_per_shard=2,
+            ingest="u8", subchannel_cfgs=cfgs, fuse_fic=True)
+    (gstep, gstate), (cstep, cstate) = steps["cuda"], steps["cpu"]
+    gstate, cstate = gstate[:2], cstate[:2]
+    halo = gstep.tail_samples
+    for r in range(2):
+        blk = u8[:, 2 * F * fs * r:2 * F * fs * (r + 1)]
+        tail = u8[:, 2 * F * fs * (r + 1):2 * F * fs * (r + 1) + 2 * halo]
+        K.reset_launches()
+        *gstate, gout = gstep(*gstate, blk, tail)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES == {"viterbi_decode_fused": 1, "viterbi_acs": 0,
+                              "viterbi_chainback": 0}
+        *cstate, cout = cstep(*cstate, blk, tail)
+        for k in ("fib_bits", "msc_bits", "offsets"):
+            assert gout[k].device.type == "cuda"
+            assert torch.equal(gout[k].cpu(), cout[k]), k
+        nb_steps = cout["msc_bits"].shape[-1] + 6
+        for k in ("fic_err", "msc_err"):
+            d = (gout[k].cpu().long() - cout[k].long()).abs().max()
+            assert d <= 0.005 * 4 * nb_steps, k
+        diff = (gstate[1].cpu().to(torch.int16) - cstate[1]).abs()
+        assert diff.max() <= 1 and (diff != 0).float().mean() <= 5e-3
+
+
+def test_feeder_stages_through_pinned_memory(cuda):
+    """On a CUDA device the feeder hands out device tensors whose copies
+    the consumer's stream has been made to wait for; its host buffers are
+    pinned and reused."""
+    rng = np.random.default_rng(5)
+    rounds = [(rng.integers(0, 256, (4, 4096)).astype(np.uint8),
+               rng.integers(0, 256, (4, 64)).astype(np.uint8) if r % 3 else None)
+              for r in range(12)]
+    it = iter(rounds)
+    with DoubleBufferedFeeder(lambda: next(it, None), depth=2,
+                              device=cuda) as f:
+        slots = f._stage.slots
+        got = [(blk.clone(), None if tail is None else tail.clone(),
+                blk.device.type) for blk, tail in f]
+        assert f.get(timeout=5.0) is None
+    torch.cuda.synchronize()
+    assert len(got) == 12 and len(slots) == 3
+    assert all(s[0].is_pinned() for s in slots)
+    for (blk, tail, where), (rblk, rtail) in zip(got, rounds):
+        assert where == "cuda"
+        np.testing.assert_array_equal(blk.cpu().numpy(), rblk)
+        assert (tail is None) == (rtail is None)
+        if tail is not None:
+            np.testing.assert_array_equal(tail.cpu().numpy(), rtail)
+    assert f.stats.rounds == 12 and not f._thread.is_alive()

@@ -1,7 +1,8 @@
 """The PyTorch port loads neither JAX nor the JAX package: in a fresh
 interpreter, import every module of the package and run its main path
-(transmitter -> u8 file -> radio_cli on the CPU) for a few frames, then
-check sys.modules; and no source file of the port imports either."""
+(transmitter -> u8 file -> radio_cli, then fleet_serve, on the CPU) for a
+few frames, then check sys.modules; and no source file of the port imports
+either."""
 
 import ast
 import glob
@@ -25,7 +26,7 @@ SCRIPT = textwrap.dedent("""
 
     from dab_radio_tpu_torch.host.native import iq_quantize_u8
     from dab_radio_tpu_torch.params import SubchannelConfig
-    from dab_radio_tpu_torch.apps import radio_cli
+    from dab_radio_tpu_torch.apps import fleet_serve, radio_cli
     from dab_radio_tpu_torch.models.transmitter import (EnsembleTransmitter,
                                                         ServiceSpec)
     tx = EnsembleTransmitter(1, services=[ServiceSpec(
@@ -37,6 +38,10 @@ SCRIPT = textwrap.dedent("""
     with open(path, "wb") as f:
         f.write(iq_quantize_u8(iq / np.abs(iq).max() * 0.5))
     assert radio_cli.main(["-i", path, "-F", "u8", "--backend", "cpu"]) == 0
+    assert fleet_serve.main(["-i", path, "--shared-input", "--streams", "2",
+                             "--subchannels", "0:12:EEP3A",
+                             "--frames-per-step", "1", "--prefetch", "1",
+                             "--backend", "cpu"]) == 0
     assert "jax" not in sys.modules, "the main path loaded jax"
     loaded = [m for m in sys.modules
               if m == "dab_radio_tpu" or m.startswith("dab_radio_tpu.")]
@@ -55,6 +60,7 @@ def test_port_never_loads_jax(tmp_path):
     assert "NO_JAX_OK" in res.stdout
     assert "ensemble: id=C0FE" in res.stderr
     assert "demod: frames_read=2 desync=0" in res.stderr
+    assert '"ensemble": "C0FE"' in res.stdout and '"rounds": 2' in res.stdout
 
 
 def _imported_modules(path):
