@@ -10,7 +10,11 @@ It exits non-zero, printing no result, when there is no card. Phases:
 2. build every kernel from dab_radio_tpu_torch/csrc (one nvcc per source);
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the receive chain gives it, with CUDA-event times of both and the
-   roofline bound of the work;
+   roofline bound of the work; K1's windowed mode at the window shapes of
+   the tiled decode (28, 936, 1,300 and 126,464 windows of 320 steps), with
+   the time of the whole tiled decode, window gather included; K1's decode
+   between start and end states other than 0, through the fused kernel and
+   through the kernel pair;
 4. the main path: an 18-service, 864-CU mode-I ensemble from the port's
    transmitter, with a carrier offset and AWGN, quantised to u8, decoded by
    the port's radio_cli on the card; every access unit must come back
@@ -21,7 +25,9 @@ It exits non-zero, printing no result, when there is no card. Phases:
 5. the long-trellis path: one 864-CU EEP 4-A subchannel (1728 kbit/s, a
    trellis of 41,478 steps) from the port's MSCEncoder, with noise, through
    the port's MSCDecoder on the card; every payload byte-exact, decoded by
-   the forward and chainback kernel pair;
+   the forward and chainback kernel pair; then the same subchannel after
+   set_decode_mode("tiled"): byte-exact again, one windowed launch a decode
+   and the pair not at all, and the time of both decodes;
 6. the fleet path, at full width: 16 streams of that ensemble (4 distinct
    captures, each with its own access units, carrier offset and noise)
    served by the port's fleet_serve on the card, 8 frames a round; 16
@@ -30,9 +36,22 @@ It exits non-zero, printing no result, when there is no card. Phases:
    exactly one fused Viterbi launch a round, of 9,728 messages of 1,542
    steps; the time of each round, the device time of the round's step, the
    host's byte-layer time and the real-time ensembles they amount to;
-7. a discovery run: 2 distinct captures through fleet_serve --discover, 4
+7. the fleet path tiled, at full width: the same 16 streams through
+   fleet_serve --viterbi tiled: every access unit byte-exact, exactly one
+   windowed launch a round, of 126,464 windows, with the round's times
+   beside the exact round's;
+8. a discovery run: 2 distinct captures through fleet_serve --discover, 4
    frames a round (per-stream layouts from the dynamic receiver);
-8. which host native libraries run as shared libraries, a JSON line of the
+9. the exact decode variants on the card, at a smaller depth (2 streams, 4
+   frames a round): receiver_step with chainback="parallel",
+   chainback="fused", viterbi_branch="lut" and viterbi="radix8" on the
+   input of the default step: every output equal, each step's time;
+10. the older batched path: 4 distinct captures through
+   MultiStreamDemodulator (u8 ingest, 4 frames a step, soft bits kept on the
+   card) into ReceiverFleet (pipeline depth 2): every access unit
+   byte-exact, no desync, and a round one fused launch for the stacked FIC
+   and one for each protection shape of the MSC;
+11. which host native libraries run as shared libraries, a JSON line of the
    kernels, then the last line {"ok": true, "device": {...}}.
 
 Scratch files go to build/chip_smoke/ in the checkout.
@@ -89,6 +108,19 @@ DISCOVER_K = 4
 K1_SHAPES = [("fic", 4, 774), ("msc_group", 72, 1542), ("wide", 1024, 1542),
              ("round16", 1152, 1542), ("long", 8, 9222),
              ("round16x8", FLEET_LANES, 1542)]
+# the windows of the tiled decode of four of those (and of the long path's
+# 4 x 41478): ceil(T / 128) windows of 128 + 2 * 96 steps a message
+WINDOWS_OF = {"fic": "fic_tiled", "msc_group": "msc_group_tiled",
+              "eep4a_864cu": "long_tiled", "round16x8": "round16x8_tiled"}
+WINDOW_L = 320
+# the plain windowed version holds (B, 320, 128) branch metrics in float32
+# and in int32: it is run on this many windows at a time (an eighth of the
+# fleet round's 126,464)
+WINDOW_PLAIN_CHUNK = 15808
+VARIANT_STREAMS = 2
+VARIANT_K = 4
+BATCHED_STREAMS = 4
+BATCHED_K = 4
 PLAIN_TIMED = ("fic", "msc_group")      # the plain loops take 0.1 to 0.9 s
 # the plain forward pass holds (B, T, 128) branch metrics in float32 and in
 # int32 and a (T, B, 64) int64 product: it is run on this many messages at
@@ -102,16 +134,19 @@ LONG_NOISE_STD = 30.0
 # the Pallas kernel body, and the lax.scan chainback of viterbi_decode_pallas
 REPLACES = {"viterbi_decode_fused": "dab_radio_tpu/ops/viterbi_pallas.py:46",
             "viterbi_acs": "dab_radio_tpu/ops/viterbi_pallas.py:46",
-            "viterbi_chainback": "dab_radio_tpu/ops/viterbi_pallas.py:151"}
+            "viterbi_chainback": "dab_radio_tpu/ops/viterbi_pallas.py:151",
+            "viterbi_decode_windows": "dab_radio_tpu/ops/viterbi_pallas.py:46"}
 # the shape each kernel's entry in the JSON line is taken at: the one its
 # path gives it most of the work at
 REPORT_SHAPE = {"viterbi_decode_fused": "round16x8",
                 "viterbi_acs": "eep4a_864cu",
-                "viterbi_chainback": "eep4a_864cu"}
+                "viterbi_chainback": "eep4a_864cu",
+                "viterbi_decode_windows": "round16x8_tiled"}
 # the path of this script that launches each kernel: the other launches it
 # no time, which that path checks
 KERNEL_PATH = {"viterbi_decode_fused": "fleet", "viterbi_acs": "long",
-               "viterbi_chainback": "long"}
+               "viterbi_chainback": "long",
+               "viterbi_decode_windows": "fleet_tiled"}
 
 # Roofline of one H100 SXM. Device memory: 3.35 TB/s. int32 outside the
 # tensor cores: 64 lanes on each of 132 SMs at 1.98 GHz, one operation a
@@ -142,6 +177,11 @@ def bound(name, B, T):
                         ACS_OPS_PER_STEP * steps),
         "viterbi_chainback": (8 * steps + steps,
                               CHAINBACK_OPS_PER_STEP * steps),
+        # the fused kernel's work on B windows of T steps; a mask byte in
+        # and no path error out
+        "viterbi_decode_windows": (4 * steps + steps + B,
+                                   (ACS_OPS_PER_STEP + CHAINBACK_OPS_PER_STEP)
+                                   * steps),
     }[name]
     t_bytes = nb_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
@@ -155,6 +195,12 @@ def log(msg):
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def launched(**counts):
+    """The wrappers' launch counts with every kernel at 0 but those named."""
+    from dab_radio_tpu_torch.kernels import viterbi_acs as K
+    return K.launched(**counts)
 
 
 def card_line():
@@ -219,9 +265,56 @@ def _cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def check_windows(name, d, out):
+    """K1's windowed mode on the windows of the tiled decode of d (B, T, 4),
+    against its plain version, bit for bit, on every window
+    (WINDOW_PLAIN_CHUNK at a time). Times the kernel, and the whole tiled
+    decode of d with the window gather and the slice around it."""
+    import torch
+    from dab_radio_tpu_torch.kernels import viterbi_acs as K
+    from dab_radio_tpu_torch.ops import viterbi as vit
+    windows, first = vit.tile_windows(d)
+    B, L = windows.shape[:2]
+    check(L == WINDOW_L, f"windows of {L} steps")
+    before = dict(K.LAUNCHES)
+    bits = K.decode_windows(windows, first)
+    torch.cuda.synchronize()
+    took = {k: K.LAUNCHES[k] - before[k] for k in before}
+    check(took == launched(viterbi_decode_windows=1),
+          f"decode_windows launched {took} at {name}")
+    plain_ms, err = 0.0, 0
+    for lo in range(0, B, WINDOW_PLAIN_CHUNK):
+        sl = slice(lo, lo + WINDOW_PLAIN_CHUNK)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        want = K.decode_windows_plain(windows[sl], first[sl])
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms += start.elapsed_time(end)
+        err = max(err, int((bits[sl].to(torch.int16) - want).abs().max()))
+        del want
+    check(first.any() and not first.all(),
+          f"the windows of {name} hold one kind of tile only")
+    if err:
+        raise AssertionError(f"viterbi_decode_windows disagrees with its "
+                             f"plain version at {name} (B={B}, L={L})")
+    reps = 20 if B * L < 2_000_000 else 5
+    ms = _cuda_ms(lambda: K.decode_windows(windows, first), reps)
+    tiled_ms = _cuda_ms(lambda: vit.viterbi_decode_soft_tiled(d), reps)
+    b_ms, b_by = bound("viterbi_decode_windows", B, L)
+    out["viterbi_decode_windows"][name] = {
+        "B": B, "T": L, "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+        "bound_ms": b_ms, "bound_by": b_by}
+    log(f"K1 {name:16s} windows B={B:6d} L={L} route={K.plan(B, L)} "
+        f"bit-identical=True | kernel {ms:.4f} ms, "
+        f"bound {b_ms:.6f} ms by {b_by}, share {100 * b_ms / ms:.3f}% | "
+        f"tiled decode with its window gather {tiled_ms:.4f} ms for "
+        f"{tuple(d.shape[:2])} | plain {plain_ms:.1f} ms")
+
+
 def check_kernels(dev):
-    """The three kernels of K1 against the plain versions, bit for bit, at
-    every shape; returns {kernel: {shape name: {B, T, ms, plain_ms,
+    """The kernels of K1 against the plain versions, bit for bit, at every
+    shape, the windowed mode at the window shapes of WINDOWS_OF; returns {kernel: {shape name: {B, T, ms, plain_ms,
     max_abs_err, bound_ms, bound_by}}}."""
     import torch
     from dab_radio_tpu_torch.kernels import viterbi_acs as K
@@ -240,14 +333,15 @@ def check_kernels(dev):
         dbits, derr = K.decode(d)
         took = {k: K.LAUNCHES[k] - before[k] for k in before}
         torch.cuda.synchronize()
-        check(took == {"viterbi_decode_fused": int(fused),
-                       "viterbi_acs": int(not fused),
-                       "viterbi_chainback": int(not fused)},
+        check(took == launched(viterbi_decode_fused=int(fused),
+                               viterbi_acs=int(not fused),
+                               viterbi_chainback=int(not fused)),
               f"decode took the wrong route at {name}: {took}")
         # the plain versions, PLAIN_CHUNK messages at a time, timed by the
         # one run that the comparison needs
-        same = dict.fromkeys(REPLACES, True)
-        errs = dict.fromkeys(REPLACES, 0)
+        exact = [k for k in REPLACES if k != "viterbi_decode_windows"]
+        same = dict.fromkeys(exact, True)
+        errs = dict.fromkeys(exact, 0)
         pms_acs = pms_cb = 0.0
         for lo in range(0, B, PLAIN_CHUNK):
             sl = slice(lo, lo + PLAIN_CHUNK)
@@ -292,7 +386,7 @@ def check_kernels(dev):
             f"chainback {ms['viterbi_chainback']:.4f} ms | plain acs "
             f"{pms_acs:.1f} ms chainback {pms_cb:.1f} ms | "
             f"Mbit/s {B * T / whole / 1e3:.2f}")
-        for kernel in REPLACES:
+        for kernel in exact:
             if not same[kernel]:
                 raise AssertionError(f"{kernel} disagrees with its plain "
                                      f"version at {name} (B={B}, T={T})")
@@ -305,7 +399,48 @@ def check_kernels(dev):
                 log(f"   {kernel:22s} {ms[kernel]:.4f} ms, bound "
                     f"{b_ms:.6f} ms by {b_by}, share "
                     f"{100 * b_ms / ms[kernel]:.3f}%")
+        if name in WINDOWS_OF:
+            check_windows(WINDOWS_OF[name], d, out)
     return out
+
+
+# start and end states other than 0, and the shapes they are checked at: the
+# fused kernel alone in a block, 16 messages a block, and the kernel pair
+STATE_PAIRS = [(37, 22), (0, 63), (1, 0)]
+STATE_SHAPES = [(4, 774), (2200, 320), (2, 25374)]
+
+
+def check_states(dev):
+    """K1's decode between states other than 0 against the plain versions,
+    bit for bit: bits and path error of the best path from start_state to
+    end_state, through the fused kernel and through the kernel pair."""
+    import torch
+    from dab_radio_tpu_torch.kernels import viterbi_acs as K
+    rng = np.random.default_rng(SEED + 7)
+    for B, T in STATE_SHAPES:
+        d = torch.as_tensor(_encoded_soft(rng, B, T), device=dev)
+        fused = K.plan(B, T)[0] == "fused"
+        zero_bits, zero_err = K.decode(d)
+        for start, end in STATE_PAIRS[:3 if fused else 1]:
+            before = dict(K.LAUNCHES)
+            bits, err = K.decode(d, start, end)
+            torch.cuda.synchronize()
+            took = {k: K.LAUNCHES[k] - before[k] for k in before}
+            check(took == launched(viterbi_decode_fused=int(fused),
+                                   viterbi_acs=int(not fused),
+                                   viterbi_chainback=int(not fused)),
+                  f"decode between states {start} and {end} took {took}")
+            pdec, perr = K.viterbi_acs_plain(d, start, end)
+            pbits = K.chainback_plain(pdec, end)
+            if not (torch.equal(bits, pbits) and torch.equal(err, perr)):
+                raise AssertionError(
+                    f"K1 disagrees with its plain version between states "
+                    f"{start} and {end} (B={B}, T={T})")
+            check(not (torch.equal(bits, zero_bits)
+                       and torch.equal(err, zero_err)),
+                  f"states {start}, {end} gave the result of states 0, 0")
+        log(f"K1 states B={B:5d} T={T:5d} route={K.plan(B, T)[0]} "
+            f"{STATE_PAIRS[:3 if fused else 1]} bit-identical=True")
 
 
 class _AUSource:
@@ -464,10 +599,9 @@ def main_path(dev, capture, sent):
 
     check(by_t.get(774, 0) > 0, "the FIC decode did not run a Viterbi kernel")
     check(by_t.get(1542, 0) > 0, "the MSC decode did not run a Viterbi kernel")
-    check(launches["viterbi_decode_fused"] == sum(by_t.values()),
-          f"a decode took more than one launch: {launches} for {by_t}")
-    check(launches["viterbi_acs"] == 0 and launches["viterbi_chainback"] == 0,
-          f"the kernel pair ran on the main path: {launches}")
+    check(launches == launched(viterbi_decode_fused=sum(by_t.values())),
+          f"a decode took more than one launch, or another kernel than the "
+          f"fused one ran on the main path: {launches} for {by_t}")
     air = frames * 0.096
     log(f"main path: frames={frames} wall={wall:.3f} s air={air:.3f} s "
         f"real-time factor={air / wall:.3f} access_units={nb_aus} "
@@ -475,47 +609,82 @@ def main_path(dev, capture, sent):
     return launches
 
 
-def long_path(dev):
+def long_path(dev, mode="exact"):
     """One 864-CU EEP 4-A subchannel, MSCEncoder -> noise -> MSCDecoder on
     the card: the trellis of 41,478 steps takes the forward and chainback
-    kernel pair. Returns the launch counts of this path."""
+    kernel pair, or with mode "tiled" (dab/msc.py:set_decode_mode) one
+    windowed launch a decode of 4 CIFs, 1,300 windows. Returns the launch
+    counts of this path."""
     import torch
-    from dab_radio_tpu_torch.dab.msc import MSCDecoder, MSCEncoder
+    from dab_radio_tpu_torch.dab import msc
     from dab_radio_tpu_torch.kernels import viterbi_acs as K
+    from dab_radio_tpu_torch.ops import viterbi as vit
     from dab_radio_tpu_torch.params import SubchannelConfig
     cfg = SubchannelConfig(0, LONG_CU, False, eep_type="A", eep_prot_level=3)
-    enc, dec = MSCEncoder(cfg), MSCDecoder(cfg, dev)
+    enc, dec = msc.MSCEncoder(cfg), msc.MSCDecoder(cfg, dev)
     check(dec.spec.nb_steps == LONG_T, f"trellis of {dec.spec.nb_steps} steps")
     rng = np.random.default_rng(SEED + 1)
     sent, got = [], []
-    K.reset_launches()
-    t0 = time.perf_counter()
-    for _ in range(LONG_FRAMES):
-        cifs = np.empty((4, cfg.nb_cif_bits), np.int8)
-        for k in range(4):
-            sent.append(rng.integers(0, 256, enc.nb_data_bytes)
-                        .astype(np.uint8).tobytes())
-            cifs[k] = enc.encode_cif(sent[-1])
-        noisy = cifs + rng.normal(0.0, LONG_NOISE_STD, cifs.shape)
-        got += dec.decode_frame(np.clip(np.round(noisy), -127, 127)
-                                .astype(np.int8))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
-    by_t = dict(K.ACS_LAUNCHES_BY_T)
+    msc.set_decode_mode(mode)
+    try:
+        K.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(LONG_FRAMES):
+            cifs = np.empty((4, cfg.nb_cif_bits), np.int8)
+            for k in range(4):
+                sent.append(rng.integers(0, 256, enc.nb_data_bytes)
+                            .astype(np.uint8).tobytes())
+                cifs[k] = enc.encode_cif(sent[-1])
+            noisy = cifs + rng.normal(0.0, LONG_NOISE_STD, cifs.shape)
+            got += dec.decode_frame(np.clip(np.round(noisy), -127, 127)
+                                    .astype(np.int8))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        by_t = dict(K.ACS_LAUNCHES_BY_T)
+    finally:
+        msc.set_decode_mode("exact")
     nb_fill = 15                      # CIFs before the deinterleaver is full
     check(got[:nb_fill] == [None] * nb_fill, "output before the fill")
     decoded = got[nb_fill:]
     check(len(decoded) == 4 * LONG_FRAMES - nb_fill and
           decoded == sent[:len(decoded)],
-          "long-trellis payloads differ from those sent")
-    check(by_t == {LONG_T: LONG_FRAMES}, f"forward passes by T: {by_t}")
-    check(launches == {"viterbi_decode_fused": 0, "viterbi_acs": LONG_FRAMES,
-                       "viterbi_chainback": LONG_FRAMES},
-          f"the long trellis did not take the kernel pair: {launches}")
-    log(f"long path: {LONG_CU} CU EEP 4-A, T={LONG_T}, {len(decoded)} CIFs of "
-        f"{enc.nb_data_bytes} bytes byte-exact, noise std {LONG_NOISE_STD}, "
-        f"wall={wall:.3f} s (encoder included) launches={launches}")
+          f"long-trellis payloads ({mode}) differ from those sent")
+    if mode == "tiled":
+        check(by_t == {WINDOW_L: LONG_FRAMES}
+              and launches == launched(viterbi_decode_windows=LONG_FRAMES),
+              f"the tiled long trellis did not take one windowed launch a "
+              f"decode: {launches} by T {by_t}")
+        # both decodes of 4 codewords at the path's own noise, depuncture
+        # included, on one input (launches made to time them are not the
+        # path's). On symbols that are no codeword the survivor paths merge
+        # late, and the pair's chainback, which walks its segments from
+        # guessed entry states, has more to repair: that is not this path.
+        coded = np.stack([vit.puncture(vit.conv_encode(
+            rng.integers(0, 2, dec.spec.nb_data_bits)), dec.spec.mask)
+            for _ in range(4)])
+        noisy = vit.bits_to_soft(coded) + rng.normal(0.0, LONG_NOISE_STD,
+                                                     coded.shape)
+        soft = torch.as_tensor(np.clip(np.round(noisy), -127, 127)
+                               .astype(np.int8), device=dev)
+        check(torch.equal(vit.viterbi_decode(soft, dec.spec)[0],
+                          vit.viterbi_decode_tiled(soft, dec.spec)[0]),
+              "the tiled and the exact decode differ at the long path's noise")
+        pair_ms = _cuda_ms(lambda: vit.viterbi_decode(soft, dec.spec), 5)
+        tiled_ms = _cuda_ms(lambda: vit.viterbi_decode_tiled(soft, dec.spec),
+                            5)
+        log(f"long path: a decode of 4 noisy codewords, depuncture to bits: "
+            f"exact (kernel pair) {pair_ms:.4f} ms, tiled (1300 windows, one "
+            f"launch) {tiled_ms:.4f} ms")
+    else:
+        check(by_t == {LONG_T: LONG_FRAMES}, f"forward passes by T: {by_t}")
+        check(launches == launched(viterbi_acs=LONG_FRAMES,
+                                   viterbi_chainback=LONG_FRAMES),
+              f"the long trellis did not take the kernel pair: {launches}")
+    log(f"long path ({mode}): {LONG_CU} CU EEP 4-A, T={LONG_T}, "
+        f"{len(decoded)} CIFs of {enc.nb_data_bytes} bytes byte-exact, noise "
+        f"std {LONG_NOISE_STD}, wall={wall:.3f} s (encoder included) "
+        f"launches={launches}")
     return launches
 
 
@@ -626,41 +795,44 @@ def _check_streams(lines, scrape, sent_of_stream):
     return nb_aus
 
 
-def fleet_path(dev, paths, sents):
+def fleet_path(dev, paths, sents, viterbi="exact"):
     """fleet_serve on 16 streams of the 18-service ensemble, 8 frames a
-    round: every access unit byte-exact, one fused Viterbi launch a round."""
-    scrape = os.path.join(WORK, "fleet_scrape")
+    round: every access unit byte-exact, one Viterbi launch a round: the
+    fused kernel on 9,728 messages of 1,542 steps, or with viterbi "tiled"
+    the windowed one on their 126,464 windows of 320."""
+    tag = "fleet path" if viterbi == "exact" else f"fleet path ({viterbi})"
+    scrape = os.path.join(WORK, f"fleet_scrape_{viterbi}")
     shutil.rmtree(scrape, ignore_errors=True)
     order = [k % len(paths) for k in range(FLEET_STREAMS)]
     layout = ",".join(f"{48 * i}:48:EEP3A" for i in range(NB_SERVICES))
     argv = ["-i", *[paths[k] for k in order], "--subchannels", layout,
             "--frames-per-step", str(FLEET_K), "--scraper-output", scrape,
-            "--backend", "cuda"]
+            "--viterbi", viterbi, "--backend", "cuda"]
     lines, _, timers, launches, by_t, wall = _serve(argv)
     rounds = lines[-1]["rounds"]
     check(rounds == (NB_FRAMES - 1) // FLEET_K, f"{rounds} rounds")
     nb_aus = _check_streams(lines, scrape, [sents[k] for k in order])
-    check(launches == {"viterbi_decode_fused": rounds, "viterbi_acs": 0,
-                       "viterbi_chainback": 0} and by_t == {1542: rounds}
-          and timers.step_launches
-          == [({"viterbi_decode_fused": 1}, {1542: 1})] * rounds,
-          f"not one fused launch a round at T=1542: {launches} by T {by_t}, "
-          f"by round {timers.step_launches}")
+    kernel, T = {"exact": ("viterbi_decode_fused", 1542),
+                 "tiled": ("viterbi_decode_windows", WINDOW_L)}[viterbi]
+    check(launches == launched(**{kernel: rounds}) and by_t == {T: rounds}
+          and timers.step_launches == [({kernel: 1}, {T: 1})] * rounds,
+          f"not one {kernel} launch a round at T={T}: {launches} by T "
+          f"{by_t}, by round {timers.step_launches}")
     step_ms = timers.step_ms()
     air = FLEET_STREAMS * FLEET_K * 0.096
     warm = timers.round_wall_s[-1]
-    log(f"fleet path: streams={FLEET_STREAMS} ({len(paths)} distinct) "
+    log(f"{tag}: streams={FLEET_STREAMS} ({len(paths)} distinct) "
         f"rounds={rounds} frames/round={FLEET_K} lanes/round={FLEET_LANES} "
         f"access_units={nb_aus} (all byte-exact) wall={wall:.3f} s "
         f"launches={launches} by T={by_t}")
-    log("fleet path: round wall s = "
+    log(f"{tag}: round wall s = "
         + json.dumps([round(x, 4) for x in timers.round_wall_s])
         + " (a round's wall holds the byte layer of the round before)")
-    log("fleet path: device step ms = "
+    log(f"{tag}: device step ms = "
         + json.dumps([round(x, 3) for x in step_ms])
         + ", host consume s = "
         + json.dumps([round(x, 4) for x in timers.consume_s]))
-    log(f"fleet path: warm round wall {warm:.4f} s for {air:.3f} s of air: "
+    log(f"{tag}: warm round wall {warm:.4f} s for {air:.3f} s of air: "
         f"real-time ensembles = {air / warm:.3f}")
     return launches
 
@@ -681,14 +853,179 @@ def discovery_path(dev, paths, sents):
     # T=1542), so the rounds are counted step by step
     check(timers.step_launches
           == [({"viterbi_decode_fused": 1}, {1542: 1})] * rounds
-          and launches["viterbi_acs"] == 0
-          and launches["viterbi_chainback"] == 0,
+          and launches
+          == launched(viterbi_decode_fused=launches["viterbi_decode_fused"]),
           f"not one fused launch a round at T=1542: {timers.step_launches}, "
           f"in all {launches} by T {by_t}")
     log(f"discovery path: streams={DISCOVER_STREAMS} rounds={rounds} "
         f"frames/round={DISCOVER_K} access_units={nb_aus} (all byte-exact) "
         f"wall={wall:.3f} s launches={launches} by T={by_t} round wall s = "
         + json.dumps([round(x, 4) for x in timers.round_wall_s]))
+    return launches
+
+
+def _aligned_streams(fleet, paths):
+    """Each capture's u8 samples from its first whole frame on."""
+    streams = []
+    for path in paths:
+        u8 = np.fromfile(path, np.uint8)
+        off = fleet.find_alignment(u8[:2 * 4 * fleet.fs])
+        check(off is not None, f"no frame sync in {path}")
+        streams.append(u8[off:])
+    return streams
+
+
+def variants_path(dev, paths):
+    """The exact decode variants on the card: receiver_step with each flag
+    on 2 streams x 4 frames of the 18-service ensemble, two rounds from the
+    default step's input and state: every output equal to the default
+    step's. They are torch loops over the trellis: their times are printed,
+    and the default step's K1 launches are the only ones."""
+    import torch
+    from dab_radio_tpu_torch.kernels import viterbi_acs as K
+    from dab_radio_tpu_torch.models.fused_fleet import FusedFleet
+    from dab_radio_tpu_torch.parallel.mesh import receiver_step
+    from dab_radio_tpu_torch.params import SubchannelConfig
+    cfgs = [SubchannelConfig(48 * i, 48, False, eep_type="A", eep_prot_level=2)
+            for i in range(NB_SERVICES)]
+    fleet = FusedFleet(VARIANT_STREAMS, cfgs, 1, VARIANT_K, device=dev)
+    streams = _aligned_streams(fleet, paths[:VARIANT_STREAMS])
+    chunk, tb = 2 * fleet.round_samples, fleet.tail_bytes
+    rounds = [(torch.as_tensor(np.stack([s[r * chunk:(r + 1) * chunk]
+                                         for s in streams]), device=dev),
+               torch.as_tensor(np.stack(
+                   [s[(r + 1) * chunk:(r + 1) * chunk + tb] for s in streams]),
+                   device=dev)) for r in range(2)]
+    lanes = VARIANT_STREAMS * (NB_SERVICES * 4 * VARIANT_K + 4 * VARIANT_K)
+
+    def run(**kw):
+        step, (carry, hist, _) = receiver_step(
+            dev, 1, VARIANT_K, subchannels_per_shard=NB_SERVICES,
+            ensembles_per_shard=VARIANT_STREAMS, ingest="u8",
+            subchannel_cfgs=cfgs, fuse_fic=True, **kw)
+        outs, times = [], []
+        for blk, tail in rounds:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            carry, hist, out = step(carry, hist, blk, tail)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            outs.append(out)
+        return outs, times
+
+    K.reset_launches()
+    want, base_s = run()
+    launches = dict(K.LAUNCHES)
+    check(launches == launched(viterbi_decode_fused=2),
+          f"the default step launched {launches}")
+    log(f"variants path: {VARIANT_STREAMS} streams x {VARIANT_K} frames, "
+        f"{lanes} lanes of 1542 steps; default step (K1) "
+        + json.dumps([round(x, 4) for x in base_s]) + " s")
+    for kw in (dict(chainback="parallel"), dict(chainback="fused"),
+               dict(viterbi_branch="lut"), dict(viterbi="radix8")):
+        got, took_s = run(**kw)
+        for r, (a, b) in enumerate(zip(got, want)):
+            for k in ("fib_bits", "msc_bits", "fic_err", "msc_err",
+                      "offsets"):
+                check(torch.equal(a[k], b[k]),
+                      f"{kw}: {k} of round {r} differs from the default "
+                      f"step's")
+        log(f"variants path: {kw} equal to the default step in all outputs; "
+            "step " + json.dumps([round(x, 4) for x in took_s]) + " s (torch "
+            "loops over the trellis, no kernel)")
+    check(dict(K.LAUNCHES) == launches,
+          f"a variant launched a kernel: {dict(K.LAUNCHES)}")
+    return launches
+
+
+def batched_path(dev, paths, sents):
+    """The older batched path: 4 distinct captures through
+    MultiStreamDemodulator (u8 ingest, 4 frames a step, soft bits kept on
+    the card) into ReceiverFleet (pipeline depth 2). Every access unit
+    byte-exact, no desync, and each round one fused launch for the stacked
+    FIC (16 x 774) and one for each protection shape of the MSC (here one:
+    288 x 1542). Returns the launch counts of this path."""
+    import torch
+    from dab_radio_tpu_torch.kernels import viterbi_acs as K
+    from dab_radio_tpu_torch.models.demodulator import OFDMDemodulator
+    from dab_radio_tpu_torch.models.fleet import ReceiverFleet
+    from dab_radio_tpu_torch.models.multistream import MultiStreamDemodulator
+    N = BATCHED_STREAMS
+    ms = MultiStreamDemodulator(OFDMDemodulator(1, device=dev), N,
+                                frames_per_step=BATCHED_K, ingest="u8",
+                                fetch_bits=False, device=dev)
+    fleet = ReceiverFleet(N, 1, pipeline_depth=2, device=dev)
+    got = {}
+    for k, rx in enumerate(fleet.receivers):
+        def on_channel(sub_id, ch, _k=k):
+            aus = got.setdefault((_k, sub_id), [])
+            ch.events.on_access_unit.append(
+                lambda i, n, au, hdr: aus.append(bytes(au)))
+        rx.on_audio_channel.append(on_channel)
+    for k, path in enumerate(paths[:N]):
+        ms.push(k, np.fromfile(path, np.uint8))
+    K.reset_launches()
+    step_s, round_s, per_round = [], [], []
+    t_all = time.perf_counter()
+    while True:
+        t0 = time.perf_counter()
+        res = ms.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if not res:
+            break
+        check(all(torch.is_tensor(b) and b.device.type == "cuda"
+                  for _, b in res), "the soft bits left the card")
+        while res:         # a step gives up to 4 frames a stream, in order
+            seen, now, later = set(), [], []
+            for i, b in res:
+                (later if i in seen else now).append((i, b))
+                seen.add(i)
+            before = dict(K.ACS_LAUNCHES_BY_T)
+            t0 = time.perf_counter()
+            fleet.process_frames(now)
+            round_s.append(time.perf_counter() - t0)
+            per_round.append({T: n - before.get(T, 0)
+                              for T, n in K.ACS_LAUNCHES_BY_T.items()
+                              if n != before.get(T, 0)})
+            res = later
+    fleet.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_all
+    launches = dict(K.LAUNCHES)
+    check(int(ms.carry.total_desync.sum()) == 0, "a stream lost sync")
+    frames = fleet.total_frames
+    check(frames >= N * (NB_FRAMES - 3), f"{frames} frames decoded")
+    # a round: one fused launch for the stacked FIC, and once the channels
+    # are known one for the one protection shape of the MSC
+    check(all(r in ({774: 1}, {774: 1, 1542: 1}) for r in per_round)
+          and per_round[-1] == {774: 1, 1542: 1}
+          and launches == launched(
+              viterbi_decode_fused=sum(sum(r.values()) for r in per_round)),
+          f"launches by round {per_round}, in all {launches}")
+    nb_aus = 0
+    for k in range(N):
+        check(len(fleet.receivers[k].channels) == NB_SERVICES,
+              f"stream {k}: {len(fleet.receivers[k].channels)} channels")
+        for s in range(NB_SERVICES):
+            aus = got.get((k, 3 + s))
+            sent = sents[k][0xF123 + s]
+            check(aus and aus[0] in sent, f"stream {k} subchannel {3 + s}: "
+                  "no access unit, or an unknown one")
+            at = sent.index(aus[0])
+            check(aus == sent[at:at + len(aus)],
+                  f"stream {k} subchannel {3 + s}: access units differ from "
+                  "those sent")
+            nb_aus += len(aus)
+    air = frames * 0.096
+    log(f"batched path: streams={N} frames={frames} rounds={len(round_s)} "
+        f"access_units={nb_aus} (all byte-exact) desync=0 wall={wall:.3f} s "
+        f"for {air:.3f} s of air: real-time ensembles = {air / wall:.3f}; "
+        f"launches={launches} by T={dict(K.ACS_LAUNCHES_BY_T)}")
+    log("batched path: demodulator step s = "
+        + json.dumps([round(x, 4) for x in step_s])
+        + ", process_frames round s = "
+        + json.dumps([round(x, 4) for x in round_s]))
     return launches
 
 
@@ -765,12 +1102,7 @@ def measure_fleet(dev, paths):
             for i in range(NB_SERVICES)]
     fleet = FusedFleet(FLEET_STREAMS, cfgs, 1, FLEET_K, device=dev)
     chunk, tb = 2 * fleet.round_samples, fleet.tail_bytes
-    streams = []
-    for path in paths:
-        u8 = np.fromfile(path, np.uint8)
-        off = fleet.find_alignment(u8[:2 * 4 * fleet.fs])
-        check(off is not None, f"no frame sync in {path}")
-        streams.append(u8[off:])
+    streams = _aligned_streams(fleet, paths)
     streams = [streams[k % len(paths)] for k in range(FLEET_STREAMS)]
     nb_rounds = min(s.shape[0] - tb for s in streams) // chunk
     check(nb_rounds >= 6, f"captures hold {nb_rounds} rounds, 6 are needed")
@@ -863,13 +1195,19 @@ def main():
         return res
 
     timings = phase("kernels", check_kernels, dev)
+    phase("states", check_states, dev)
     paths, sents = phase("captures", make_captures, dev)
     # each path's counts were set to 0 just before it and read just after
     launches = {"main": phase("main", main_path, dev, paths[0], sents[0]),
                 "long": phase("long", long_path, dev),
+                "long_tiled": phase("long_tiled", long_path, dev, "tiled"),
                 "fleet": phase("fleet", fleet_path, dev, paths, sents),
+                "fleet_tiled": phase("fleet_tiled", fleet_path, dev, paths,
+                                     sents, "tiled"),
                 "discovery": phase("discovery", discovery_path, dev, paths,
-                                   sents)}
+                                   sents),
+                "variants": phase("variants", variants_path, dev, paths),
+                "batched": phase("batched", batched_path, dev, paths, sents)}
     log("phases: " + ", ".join(f"{n} {t:.2f} s" for n, t in phases))
     from dab_radio_tpu_torch.host.native import native_status
     log("host native libraries: " + ", ".join(

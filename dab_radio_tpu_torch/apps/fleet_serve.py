@@ -20,8 +20,7 @@ Usage:
 with constant memory: one round + tail buffered.
 
 Prints one JSON summary line per stream plus a fleet total. Not ported yet:
-the live OFDM plots (/plot.json answers 404) and the decode variants
---viterbi tiled and --chainback parallel|fused, which raise.
+the live OFDM plots (/plot.json answers 404).
 """
 
 import argparse
@@ -509,12 +508,16 @@ def main(argv=None):
     ap.add_argument("--frames-per-step", type=int, default=8)
     ap.add_argument("--viterbi", default="exact",
                     choices=["exact", "tiled"],
-                    help="MSC Viterbi: exact full-trellis or overlap-save "
-                         "tiled (only exact is ported)")
+                    help="Viterbi of the round: exact full-trellis, or "
+                         "overlap-save tiled (2.7 times the trellis steps in "
+                         "windows of 320; with the default chainback every "
+                         "window of the round in one kernel launch)")
     ap.add_argument("--chainback", default="sequential",
                     choices=["sequential", "parallel", "fused"],
-                    help="Viterbi traceback variant (only sequential is "
-                         "ported)")
+                    help="Viterbi traceback: sequential runs the CUDA "
+                         "kernel; parallel (log-depth map composition) and "
+                         "fused (register exchange) are torch loops over the "
+                         "trellis, bit-identical and much slower")
     ap.add_argument("--prefetch", type=int, default=0,
                     help="double-buffered host-to-device staging depth for "
                          "file inputs (host.feeder): rounds upload on a "

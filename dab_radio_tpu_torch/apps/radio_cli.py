@@ -8,7 +8,8 @@ Pipeline configurations (--configuration):
   dab      : soft-bit frames in -> DAB decode
 Plus --scraper-enable (disk sink tree) and --benchmark (decode every
 discovered subchannel). --backend picks the device (default cuda; raises
-without a GPU). --viterbi tiled is not ported yet and raises.
+without a GPU). --viterbi tiled decodes the MSC by the overlap-save tiled
+Viterbi (dab/msc.py:set_decode_mode).
 
     python -m dab_radio_tpu_torch.apps.radio_cli -i capture.u8 -F u8 --benchmark
 """
@@ -90,7 +91,8 @@ def main(argv=None):
                     help="decode all subchannels, print throughput")
     ap.add_argument("--max-frames", type=int, default=0)
     ap.add_argument("--viterbi", default="exact", choices=["exact", "tiled"],
-                    help="MSC Viterbi mode (only exact is ported)")
+                    help="MSC Viterbi mode (tiled = overlap-save: every "
+                         "window in one kernel launch)")
     ap.add_argument("--frames-per-step", type=int, default=1,
                     help="run K tracking steps per host read")
     ap.add_argument("--snapshot-out", default=None,
@@ -102,11 +104,11 @@ def main(argv=None):
                          "Perfetto trace JSON here on exit")
     add_backend_flag(ap)
     args = ap.parse_args(argv)
-    if args.viterbi != "exact":
-        raise NotImplementedError(
-            f"--viterbi {args.viterbi} is not yet ported to the PyTorch "
-            "package; use --viterbi exact")
     device = apply_backend(args)
+    # the mode is the process's: set it on every call, so that a run after a
+    # tiled one decodes as its own flag says
+    from ..dab.msc import set_decode_mode
+    set_decode_mode(args.viterbi)
     if args.profile_trace:
         from ..utils.profiler import get_profiler
         get_profiler().enabled = True

@@ -61,6 +61,15 @@
 //  * Several messages per block when there are more messages than SMs, so
 //    that every SM's shared memory is filled in one wave; the caller picks
 //    the count.
+//  * Windowed mode of the fused kernel, for the overlap-save tiled decode
+//    (ops/viterbi.py:viterbi_decode_soft_tiled): a long trellis is cut into
+//    windows of a few hundred steps that are messages of their own, so that
+//    one launch fills the card where the whole trellis would keep one warp
+//    busy. A window that is not the first tile of its message starts from
+//    all 64 metrics at 0, and every window is traced back from the state
+//    with the least final metric (the lowest such state), not from state 0;
+//    there is no path error. See window_anchor for why that minimum is
+//    exact.
 //
 // Metrics are int32 for the whole message with no rebasing: a step moves a
 // metric by at most 512, so they stay far below 2^31 for any T that fits a
@@ -141,20 +150,20 @@ __device__ __forceinline__ int chain_step(int s, unsigned lo, unsigned hi) {
   return ((s << 1) & 63) | (int)((sel >> (s & 31)) & 1u);
 }
 
-// Chainback of one message by one warp, from state 0 at step T, 32 segments
-// at once. dec: the message's T decision words (.x = states 0-31). out: its
+// Chainback of one message by one warp, from state `anchor` at step T (0 for
+// a terminated message), 32 segments at once. dec: the message's T decision words (.x = states 0-31). out: its
 // T decoded bits. Lane l walks segment [lo, hi). The state it enters with
 // is the exit state of the segment above, which is not known yet: the lane
-// starts kWarmup steps higher from state 0 (survivor paths merge within a
+// starts kWarmup steps higher from the anchor (survivor paths merge within a
 // few constraint lengths) and takes what it arrives with as its entry
 // state. That is a guess, so it is checked: a segment whose entry state
 // differs from the exit state of the segment above is walked again from the
 // right state, highest first, until none differs. The top segment starts at
-// step T in state 0, which is exact, so every repaired chain is. Decision
+// step T in the anchor, which is exact, so every repaired chain is. Decision
 // words are read kBlock steps ahead of the chain.
 template <int kBlock, typename Out>
 __device__ __forceinline__ void chainback_warp(const uint2* dec, Out* out,
-                                               int T, int lane) {
+                                               int T, int lane, int anchor) {
   const int seg = ((T + 31) / 32) | 1;  // odd: rows in shared memory hit all banks
   const int nb_segs = (T + seg - 1) / seg;
   const int lo = min(lane * seg, T), hi = min(lo + seg, T);
@@ -177,7 +186,7 @@ __device__ __forceinline__ void chainback_warp(const uint2* dec, Out* out,
     }
     return s;
   };
-  int entry = walk(0, min(T, hi + kWarmup), hi, false);
+  int entry = walk(anchor, min(T, hi + kWarmup), hi, false);
   int leave = walk(entry, hi, lo, true);
   for (;;) {
     const int above = __shfl_down_sync(kFullMask, leave, 1);
@@ -191,6 +200,26 @@ __device__ __forceinline__ void chainback_warp(const uint2* dec, Out* out,
   }
 }
 
+// The state with the least final metric, the lowest one among equals, from
+// the lane's two metrics (lower half: x = pm[2L], y = pm[2L + 1]; upper
+// half: swapped). One signed minimum over the keys pm * 64 + state: for
+// pm1 < pm2 every key of pm1 is at most pm1 * 64 + 63 < pm2 * 64, so the
+// metric decides first and the state breaks ties, negative metrics
+// included (the branch metric is -sum e d, so metrics do go negative). No
+// key overflows: |pm| <= kInitialNonStart + 508 T < 2^25 for every T whose
+// decisions fit in a block's shared memory (static_assert below). The low
+// 6 bits of pm * 64 are 0 in two's complement, so key & 63 is the state.
+__device__ __forceinline__ int window_anchor(int x, int y, int lane,
+                                             int upper) {
+  const int even = upper ? y : x, odd = upper ? x : y;
+  const int key = min(even * 64 + 2 * lane, odd * 64 + 2 * lane + 1);
+  return __reduce_min_sync(kFullMask, key) & 63;
+}
+static_assert((long long)kInitialNonStart +
+                      (long long)kStepErrOffset * (kMaxDynamicSmem / 8) <
+                  (1LL << 25),
+              "window_anchor's key must fit in 32 bits for every fused T");
+
 __device__ __forceinline__ void cp_async_4(void* smem_dst, const void* src) {
   const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src)
@@ -199,10 +228,17 @@ __device__ __forceinline__ void cp_async_4(void* smem_dst, const void* src) {
 
 // Forward pass of one message per warp; with kFused the chainback too.
 //
-// d: (B, T, 4) int8 depunctured soft symbols, 4-byte aligned. err: (B,)
-// path error pm[0] + T * 508. kFused: bits (B, T) int8, the input bit of
-// every step on the survivor path that ends in state 0; decisions stay in
-// shared memory. Otherwise dec: (B, T) decision words of 64 bits.
+// d: (B, T, 4) int8 depunctured soft symbols, 4-byte aligned. Every message
+// starts in start_state (0 for a DAB codeword). err: (B,) path error
+// pm[end_state] + T * 508. kFused: bits (B, T) int8, the input bit of every
+// step on the survivor path that ends in end_state (0 for a terminated
+// codeword); decisions stay in shared memory. Otherwise dec: (B, T) decision
+// words of 64 bits.
+//
+// Windowed mode (kFused only), when first_tile is not null: message b
+// starts from the start metrics of start_state where first_tile[b] is set
+// and from all metrics at 0 elsewhere, its survivor path ends in the state
+// window_anchor names whatever end_state is, and err is not written.
 //
 // Shared memory of a warp, smem_per_msg bytes (a multiple of 16): the ring
 // of kRingWords symbol words (step t at word t mod kRingWords), then for
@@ -211,8 +247,9 @@ template <bool kFused>
 __global__ void __launch_bounds__(32 * kMaxWarpsPerBlock)
 viterbi_forward(const int8_t* __restrict__ d,
                 unsigned long long* __restrict__ dec,
-                int8_t* __restrict__ bits, int32_t* __restrict__ err, int B,
-                int T, int smem_per_msg) {
+                int8_t* __restrict__ bits, int32_t* __restrict__ err,
+                const uint8_t* __restrict__ first_tile, int B, int T,
+                int start_state, int end_state, int smem_per_msg) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -243,8 +280,14 @@ viterbi_forward(const int8_t* __restrict__ d,
   const int upper = lane >> 4;
   const int src_a = upper ? 2 * lane - 31 : 2 * lane;
   const int src_b = upper ? 2 * lane - 32 : 2 * lane + 1;
-  int x = lane == 0 ? 0 : kInitialNonStart;
-  int y = kInitialNonStart;
+  const bool windowed = kFused && first_tile != nullptr;
+  const int non_start = windowed && !first_tile[b] ? 0 : kInitialNonStart;
+  // state s sits in lane s >> 1: an even s in x of the lower half and in y
+  // of the upper half, an odd s the other way round
+  const int start_in_x = ((start_state & 1) ^ upper) == 0;
+  const bool starts_here = lane == (start_state >> 1);
+  int x = starts_here && start_in_x ? 0 : non_start;
+  int y = starts_here && !start_in_x ? 0 : non_start;
 
   auto step = [&](int t, int word) {
     unsigned w1, w2;
@@ -289,27 +332,35 @@ viterbi_forward(const int8_t* __restrict__ d,
     }
   }
   for (; t < T; ++t) step(t, ring[t & (kRingWords - 1)]);  // fewer than 16
-  if (lane == 0) err[b] = x + T * kStepErrOffset;  // lane 0's x is pm[0]
+  int anchor = end_state;
+  if (windowed) {
+    anchor = window_anchor(x, y, lane, upper);
+  } else {
+    const int pm_end = __shfl_sync(
+        kFullMask, ((end_state & 1) ^ upper) ? y : x, end_state >> 1);
+    if (lane == 0) err[b] = pm_end + T * kStepErrOffset;
+  }
   if constexpr (!kFused) return;
 
   __syncwarp();
   for (int i = lane; i < T; i += 32)
     dec_s[i] = canonical_decisions(dec_s[i].x, dec_s[i].y);
   __syncwarp();
-  chainback_warp<8>(dec_s, bits_s, T, lane);
+  chainback_warp<8>(dec_s, bits_s, T, lane, anchor);
   __syncwarp();
   int8_t* out = bits + (size_t)b * T;
   for (int i = lane; i < T; i += 32) out[i] = (int8_t)bits_s[i];
 }
 
-// dec: (B, T) decision words. bits: (B, T) int8. One warp per message.
+// dec: (B, T) decision words. bits: (B, T) int8, traced back from state
+// `anchor` after the last step. One warp per message.
 __global__ void __launch_bounds__(32 * kChainbackWarps)
 chainback(const unsigned long long* __restrict__ dec, int8_t* __restrict__ bits,
-          int B, int T) {
+          int B, int T, int anchor) {
   const int b = blockIdx.x * kChainbackWarps + (threadIdx.x >> 5);
   if (b >= B) return;  // the whole warp leaves together
   chainback_warp<32>(reinterpret_cast<const uint2*>(dec + (size_t)b * T),
-                     bits + (size_t)b * T, T, threadIdx.x & 31);
+                     bits + (size_t)b * T, T, threadIdx.x & 31, anchor);
 }
 
 // Shared memory one message needs in the fused kernel; more than a block's
@@ -320,14 +371,15 @@ int fused_smem_needed(int T) {
 }
 
 template <bool kFused>
-int launch_forward(const void* d, void* dec, void* bits, void* err, int B,
-                   int T, int msgs_per_block, int smem_per_msg,
+int launch_forward(const void* d, void* dec, void* bits, void* err,
+                   const void* first_tile, int B, int T, int start_state,
+                   int end_state, int msgs_per_block, int smem_per_msg,
                    cudaStream_t stream) {
   const int needed = kFused ? fused_smem_needed(T) : kRingBytes;
   const long long smem = (long long)msgs_per_block * smem_per_msg;
   if (msgs_per_block < 1 || msgs_per_block > kMaxWarpsPerBlock ||
       smem_per_msg < needed || smem_per_msg % 16 || smem > kMaxDynamicSmem ||
-      reinterpret_cast<uintptr_t>(d) % 4)
+      ((start_state | end_state) & ~63) || reinterpret_cast<uintptr_t>(d) % 4)
     return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
@@ -338,7 +390,7 @@ int launch_forward(const void* d, void* dec, void* bits, void* err, int B,
   const int blocks = (B + msgs_per_block - 1) / msgs_per_block;
   viterbi_forward<kFused><<<blocks, 32 * msgs_per_block, (size_t)smem, stream>>>(
       (const int8_t*)d, (unsigned long long*)dec, (int8_t*)bits, (int32_t*)err,
-      B, T, smem_per_msg);
+      (const uint8_t*)first_tile, B, T, start_state, end_state, smem_per_msg);
   return (int)cudaGetLastError();
 }
 
@@ -355,26 +407,46 @@ extern "C" void viterbi_limits(int* out) {
 // Shared memory one message of T steps needs in the fused kernel.
 extern "C" int viterbi_fused_smem_needed(int T) { return fused_smem_needed(T); }
 
-// Whole decode in one launch: d (B, T, 4) int8 -> bits (B, T) int8, err (B,).
+// Whole decode in one launch: d (B, T, 4) int8 -> bits (B, T) int8, err (B,),
+// of the best path from start_state to end_state (states 0..63).
 extern "C" int viterbi_decode_fused(const void* d, void* bits, void* err, int B,
-                                    int T, int msgs_per_block,
-                                    int smem_per_msg, void* stream) {
-  return launch_forward<true>(d, nullptr, bits, err, B, T, msgs_per_block,
+                                    int T, int start_state, int end_state,
+                                    int msgs_per_block, int smem_per_msg,
+                                    void* stream) {
+  return launch_forward<true>(d, nullptr, bits, err, nullptr, B, T,
+                              start_state, end_state, msgs_per_block,
                               smem_per_msg, (cudaStream_t)stream);
 }
 
-// Forward pass alone: d (B, T, 4) int8 -> dec (B, T) uint64, err (B,).
+// Windowed decode in one launch: d (B, T, 4) int8 windows, first_tile (B,)
+// bytes (non-zero: the window opens its message) -> bits (B, T) int8, each
+// window traced back from its best final state. No path error.
+extern "C" int viterbi_decode_windows(const void* d, const void* first_tile,
+                                      void* bits, int B, int T,
+                                      int msgs_per_block, int smem_per_msg,
+                                      void* stream) {
+  if (first_tile == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_forward<true>(d, nullptr, bits, nullptr, first_tile, B, T, 0,
+                              0, msgs_per_block, smem_per_msg,
+                              (cudaStream_t)stream);
+}
+
+// Forward pass alone, from start_state: d (B, T, 4) int8 -> dec (B, T)
+// uint64, err (B,) of the survivor that ends in end_state.
 extern "C" int viterbi_acs_forward(const void* d, void* dec, void* err, int B,
-                                   int T, int msgs_per_block, void* stream) {
-  return launch_forward<false>(d, dec, nullptr, err, B, T, msgs_per_block,
+                                   int T, int start_state, int end_state,
+                                   int msgs_per_block, void* stream) {
+  return launch_forward<false>(d, dec, nullptr, err, nullptr, B, T,
+                               start_state, end_state, msgs_per_block,
                                kRingBytes, (cudaStream_t)stream);
 }
 
-// Chainback alone: dec (B, T) uint64 -> bits (B, T) int8.
+// Chainback alone, from state `anchor`: dec (B, T) uint64 -> bits (B, T) int8.
 extern "C" int viterbi_chainback(const void* dec, void* bits, int B, int T,
-                                 void* stream) {
+                                 int anchor, void* stream) {
+  if (anchor & ~63) return (int)cudaErrorInvalidValue;
   const int blocks = (B + kChainbackWarps - 1) / kChainbackWarps;
   chainback<<<blocks, 32 * kChainbackWarps, 0, (cudaStream_t)stream>>>(
-      (const unsigned long long*)dec, (int8_t*)bits, B, T);
+      (const unsigned long long*)dec, (int8_t*)bits, B, T, anchor);
   return (int)cudaGetLastError();
 }

@@ -32,6 +32,15 @@ def fic_spec() -> vit.ViterbiSpec:
     return vit.ViterbiSpec.from_schedule(fic_puncture_schedule())
 
 
+@functools.lru_cache(maxsize=None)
+def _fic_decode_fn():
+    """(spec, decode) shared by every FICDecoder and by fleet-level batches:
+    decode(soft (G, nb_in) int8 tensor) -> (bits (G, 768), path errors (G,)),
+    one Viterbi launch for the G stacked FIB groups, on soft's device."""
+    spec = fic_spec()
+    return spec, lambda soft: vit.viterbi_decode(soft, spec)
+
+
 class FICDecoder:
     """Soft FIC bits of one frame -> list of CRC-valid 30-byte FIB payloads."""
 
@@ -54,6 +63,10 @@ class FICDecoder:
         self.nb_groups = state["nb_groups"]
         self.device = torch.device(state["device"])
         self.spec = fic_spec()
+
+    def to(self, device) -> "FICDecoder":
+        self.device = torch.device(device)
+        return self
 
     def decode_fic(self, fic_soft_bits: np.ndarray):
         """fic_soft_bits: (nb_fic_bits,) int8. Returns (fibs, errors) where

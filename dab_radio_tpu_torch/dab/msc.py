@@ -4,8 +4,8 @@
 The deinterleaver history is an explicit (16, nb_bits) int8 tensor on the
 decoder's device. Same-protection subchannels are decoded as one group: one
 deinterleave and one batched Viterbi over every subchannel and CIF of the
-frame. Only the exact (full-trellis) Viterbi is ported; the JAX package's
-overlap-save "tiled" mode is not.
+frame: the exact full-trellis decode, or after ``set_decode_mode("tiled")``
+the overlap-save tiled one (``ops/viterbi.py:viterbi_decode_tiled``).
 
 Pickled state holds numpy arrays, never device tensors.
 """
@@ -25,6 +25,28 @@ from ..ops.deinterleave import (make_gather_index, deinterleave_push,
                                 deinterleave_push_block, DEPTH, CIF_OFFSETS)
 
 CU_BITS = 64
+
+# MSC Viterbi mode of this process: "exact" = the full-trellis decode;
+# "tiled" = the overlap-save decode, every window of every subchannel and
+# CIF in one launch of K1's windowed mode: equal output at operating SNR,
+# and the per-layer CRCs gate the heavy-noise corner.
+_DECODE_MODE = "exact"
+
+
+def set_decode_mode(mode: str) -> None:
+    """Choose the Viterbi of every MSCDecoder and MSCDecodeGroup of the
+    process. Decoders read the mode at each decode and hold nothing that
+    depends on it, so there is no cache to clear."""
+    global _DECODE_MODE
+    if mode not in ("exact", "tiled"):
+        raise ValueError(f"decode mode must be 'exact' or 'tiled', got {mode!r}")
+    _DECODE_MODE = mode
+
+
+def _vit_decode(soft: torch.Tensor, spec: vit.ViterbiSpec):
+    if _DECODE_MODE == "tiled":
+        return vit.viterbi_decode_tiled(soft, spec)
+    return vit.viterbi_decode(soft, spec)
 
 
 @functools.lru_cache(maxsize=None)
@@ -75,8 +97,7 @@ class MSCDecodeGroup:
         self.hist, deints = deinterleave_push_block(self.hist, subs, gidx)
         deints = deints[..., :self.spec.nb_in]
         n, c, length = deints.shape
-        bits, _err = vit.viterbi_decode(deints.reshape(n * c, length),
-                                        self.spec)
+        bits, _err = _vit_decode(deints.reshape(n * c, length), self.spec)
         pushed0 = []
         for d in self.decoders:
             pushed0.append(d.nb_pushed)
@@ -150,9 +171,14 @@ class MSCDecoder:
         self.cfg = state["cfg"]
         self.nb_bits = self.cfg.nb_cif_bits
         self.spec = msc_spec(self.cfg)
-        self.device = torch.device(state.get("device", "cpu"))
+        self.device = torch.device(state["device"])
         self.history = to_device(state["history"], self.device, np.int8)
         self.nb_pushed = state["nb_pushed"]
+
+    def to(self, device) -> "MSCDecoder":
+        self.device = torch.device(device)
+        self.history = self.history.to(self.device)
+        return self
 
     def _slice(self, msc: np.ndarray) -> torch.Tensor:
         start = self.cfg.start_address * CU_BITS
@@ -166,8 +192,7 @@ class MSCDecoder:
         gidx = _gather_index(self.nb_bits, self.device)
         self.history, deint = deinterleave_push(
             self.history, self._slice(msc_soft_bits), gidx)
-        bits, _err = vit.viterbi_decode(deint[None, :self.spec.nb_in],
-                                        self.spec)
+        bits, _err = _vit_decode(deint[None, :self.spec.nb_in], self.spec)
         self.nb_pushed += 1
         if self.nb_pushed < DEPTH:
             return None
@@ -179,8 +204,7 @@ class MSCDecoder:
         gidx = _gather_index(self.nb_bits, self.device)
         self.history, deints = deinterleave_push_block(
             self.history, self._slice(msc_cifs), gidx)
-        bits, _err = vit.viterbi_decode(deints[..., :self.spec.nb_in],
-                                        self.spec)
+        bits, _err = _vit_decode(deints[..., :self.spec.nb_in], self.spec)
         bits = bits.cpu().numpy().astype(np.uint8)
         out = []
         for c in range(bits.shape[0]):

@@ -202,18 +202,21 @@ class OFDMDemodulator:
     def frame_scan(self, nb_frames: int, carry: DemodCarry, buf):
         """Demodulate up to nb_frames consecutive frames without a host
         read in between. buf: (nb_frames*frame_advance + window_len,)
-        complex. The read position is a device tensor: each frame's timing
-        offset advances the next window (clamped so every slice is in
-        bounds); after the first desync the remaining frames are masked
-        invalid. Returns (carry, consumed_samples, {bits (F, nb_bits),
-        valid (F,)})."""
+        complex, or (B, that many) with carry fields (B,) for B streams at
+        once, each with a read position of its own. The read position is a
+        device tensor: each frame's timing offset advances the next window
+        (clamped so every slice is in bounds); after the first desync the
+        remaining frames are masked invalid. Returns (carry,
+        consumed_samples, {bits (F, nb_bits), valid (F,)}), with a leading
+        B on all three for a batch."""
         buf = self._as_iq(buf)
+        batch = buf.shape[:-1]
         max_pos = nb_frames * self.frame_advance
-        pos = torch.zeros((), dtype=torch.int64, device=self.device)
-        alive = torch.ones((), dtype=torch.bool, device=self.device)
+        pos = torch.zeros(batch, dtype=torch.int64, device=self.device)
+        alive = torch.ones(batch, dtype=torch.bool, device=self.device)
         bits, valid = [], []
         for _ in range(nb_frames):
-            window = buf[pos + self._window_ar]
+            window = torch.gather(buf, -1, pos[..., None] + self._window_ar)
             new_c, out = self._frame_step_impl(carry, window)
             ok = out["sync_ok"] & alive
             carry = _select(alive, new_c, carry)
@@ -222,8 +225,8 @@ class OFDMDemodulator:
             alive = ok
             bits.append(out["bits"])
             valid.append(ok)
-        return carry, pos, {"bits": torch.stack(bits),
-                            "valid": torch.stack(valid)}
+        return carry, pos, {"bits": torch.stack(bits, dim=-2),
+                            "valid": torch.stack(valid, dim=-1)}
 
     def frame_step(self, carry: DemodCarry, window):
         """Single-stream step; window (window_len,) complex."""

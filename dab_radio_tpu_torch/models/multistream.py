@@ -1,0 +1,238 @@
+"""Batched multi-ensemble streaming demodulation (port of
+``dab_radio_tpu/models/multistream.py``).
+
+Many independent 2.048 MSPS IQ streams demodulated at once on one device.
+Each stream keeps its own host read pointer and sync state, but every
+tracking round batches all locked streams' windows into ONE batched frame
+step (or K-frame scan) on the device. Streams acquire independently
+(acquisition is rare); tracking dominates and is fully batched. A stream
+that loses lock falls back to acquisition without stalling the batch.
+"""
+
+from typing import List
+
+import numpy as np
+import torch
+
+from .demodulator import OFDMDemodulator, DemodCarry, _select
+from ..parallel.mesh import _u8_to_complex
+from ..utils.backend import to_device
+
+
+class MultiStreamDemodulator:
+    """B concurrent streams over one OFDMDemodulator, on `device` (which
+    must be the demodulator's; there is no default: the caller says where
+    the batch runs).
+
+    ingest="u8" keeps the raw RTL-SDR byte stream end to end: host buffers
+    hold interleaved uint8 IQ, and the dequantisation ((x - 127.5) times the
+    float32 reciprocal of 127.5, as the fused round forms it) happens on the
+    device inside the round: a quarter of the host-to-device bytes of
+    complex64. Acquisition dequantises its one window on the host, by a
+    divide, as the JAX class does.
+
+    fetch_bits=False keeps each round's soft bits on the device (the frames
+    returned are rows of the batched output); pair it with ReceiverFleet,
+    whose decode takes them there, so that only decoded bytes reach the
+    host."""
+
+    def __init__(self, demod: OFDMDemodulator, nb_streams: int,
+                 frames_per_step: int = 1, ingest: str = "c64",
+                 fetch_bits: bool = True, *, device):
+        if ingest not in ("c64", "u8"):
+            raise ValueError(f"ingest must be 'c64' or 'u8', got {ingest!r}")
+        self.device = torch.device(device)
+        if self.device != demod.device:
+            raise ValueError(f"the demodulator lies on {demod.device}, the "
+                             f"batch was asked for on {self.device}")
+        self.fetch_bits = fetch_bits
+        self.demod = demod
+        self.B = nb_streams
+        self.ingest = ingest
+        empty = (np.zeros(0, np.complex64) if ingest == "c64"
+                 else np.zeros(0, np.uint8))
+        self.bufs: List[np.ndarray] = [empty.copy()
+                                       for _ in range(nb_streams)]
+        self.tracking = np.zeros(nb_streams, dtype=bool)
+        self.l1 = np.zeros(nb_streams, dtype=np.float32)
+        self.carry = DemodCarry.init((nb_streams,), device=self.device)
+        self.frames_emitted = 0
+        # K-frame rounds: B streams x K tracking steps per host read
+        self.frames_per_step = max(1, frames_per_step)
+
+    def load_state(self, state: dict):
+        """Take over the streaming state of another instance (see
+        ``convert.multistream_state_from_jax``): carry leaves (B,), unread
+        samples, lock flags, acquisition levels, frame count."""
+        if len(state["bufs"]) != self.B or state["ingest"] != self.ingest:
+            raise ValueError("the state is of another batch: "
+                             f"{len(state['bufs'])} streams of "
+                             f"{state['ingest']}, this one has {self.B} of "
+                             f"{self.ingest}")
+        self.carry = DemodCarry.from_numpy(state["carry"], self.device)
+        self.bufs = [np.array(b) for b in state["bufs"]]
+        self.tracking = np.array(state["tracking"], dtype=bool)
+        self.l1 = np.array(state["l1"], dtype=np.float32)
+        self.frames_emitted = int(state["frames_emitted"])
+
+    # ---- the batched device rounds: demod and ready-mask carry merge ----
+
+    def _to_iq(self, raw: np.ndarray) -> torch.Tensor:
+        """(B, n) host block -> (B, samples) complex64 on the device."""
+        if self.ingest == "u8":
+            return _u8_to_complex(to_device(raw, self.device))
+        return to_device(raw, self.device, np.complex64)
+
+    def _masked_step(self, carry, wins, mask):
+        new_c, out = self.demod._frame_step_impl(carry, wins)
+        return _select(mask, new_c, carry), out
+
+    def _masked_scan(self, carry, bufs, mask):
+        new_c, consumed, outs = self.demod.frame_scan(
+            self.frames_per_step, carry, bufs)
+        return (_select(mask, new_c, carry), consumed,
+                outs["valid"] & mask[:, None], outs["bits"])
+
+    # ---- ingest-format helpers (sample units; u8 stores 2 bytes/sample) --
+
+    def _n_samples(self, i: int) -> int:
+        n = self.bufs[i].shape[0]
+        return n // 2 if self.ingest == "u8" else n
+
+    def _slice_raw(self, i: int, nb_samples: int) -> np.ndarray:
+        if self.ingest == "u8":
+            return self.bufs[i][:2 * nb_samples]
+        return self.bufs[i][:nb_samples]
+
+    def _slice_c64(self, i: int, nb_samples: int) -> np.ndarray:
+        raw = self._slice_raw(i, nb_samples)
+        if self.ingest == "u8":
+            x = (raw.astype(np.float32) - 127.5) / np.float32(127.5)
+            return x[:x.size // 2 * 2].view(np.complex64)
+        return raw
+
+    def _advance(self, i: int, nb_samples: int):
+        k = 2 * nb_samples if self.ingest == "u8" else nb_samples
+        self.bufs[i] = self.bufs[i][k:]
+
+    def push(self, stream_idx: int, iq: np.ndarray):
+        """c64 mode: complex64 samples. u8 mode: raw interleaved uint8 IQ
+        bytes (2 per sample)."""
+        if self.ingest == "u8":
+            arr = np.frombuffer(iq, np.uint8) if isinstance(iq, bytes) \
+                else np.asarray(iq, np.uint8)
+        else:
+            arr = np.asarray(iq, np.complex64)
+        self.bufs[stream_idx] = np.concatenate(
+            [self.bufs[stream_idx], arr])
+
+    def _acquire_stream(self, i: int) -> bool:
+        d = self.demod
+        while self._n_samples(i) >= d.window_len:
+            block = d._as_iq(self._slice_c64(i, d.window_len))
+            if self.l1[i] == 0.0:
+                self.l1[i] = float(d.l1(block))
+            found, end_idx = d.acquire(
+                block, torch.tensor(self.l1[i], dtype=torch.float32,
+                                    device=self.device))
+            self.l1[i] = 0.7 * self.l1[i] + 0.3 * float(d.l1(block))
+            if bool(found):
+                rewind = 2 * d.cfg.null_search_nb_samples
+                start = max(int(end_idx) - d.params.nb_null_period - rewind, 0)
+                self._advance(i, start)
+                return True
+            self._advance(i, d.window_len - d.params.nb_null_period)
+        return False
+
+    def _restart_carry(self, i: int):
+        """Fresh sync state for stream i at its acquisition level; the
+        cumulative counters survive re-acquisition."""
+        c = self.carry
+        fresh = [x.clone() for x in c]
+        for x in fresh:
+            x[i] = 0
+        fresh = DemodCarry(*fresh)
+        fresh.signal_l1_avg[i] = float(self.l1[i])
+        self.carry = fresh._replace(total_frames=c.total_frames,
+                                    total_desync=c.total_desync)
+
+    def _ready_block(self, nb_samples: int):
+        """The streams that track and hold nb_samples, their samples as one
+        (B, n) host block (idle rows: mid-scale bytes / zeros) and the mask."""
+        ready = [i for i in range(self.B)
+                 if self.tracking[i] and self._n_samples(i) >= nb_samples]
+        if not ready:
+            return ready, None, None
+        if self.ingest == "u8":
+            block = np.full((self.B, 2 * nb_samples), 127, np.uint8)
+        else:
+            block = np.zeros((self.B, nb_samples), np.complex64)
+        for i in ready:
+            block[i] = self._slice_raw(i, nb_samples)
+        mask = np.zeros(self.B, dtype=bool)
+        mask[ready] = True
+        return ready, self._to_iq(block), to_device(mask, self.device)
+
+    def step(self):
+        """One round: acquire unlocked streams, batch-demod locked ones.
+        Returns list of (stream_idx, bits) for frames produced; bits is a
+        numpy array, or with fetch_bits=False a row of a device tensor."""
+        d = self.demod
+        for i in range(self.B):
+            if not self.tracking[i] and self._acquire_stream(i):
+                self.tracking[i] = True
+                self._restart_carry(i)
+
+        K = self.frames_per_step
+        if K > 1:
+            scan_len = K * d.frame_advance + d.window_len
+            ready, dev_in, mask = self._ready_block(scan_len)
+            if not ready:
+                return []
+            self.carry, consumed, valid, bits = self._masked_scan(
+                self.carry, dev_in, mask)
+            # one fetch of the round's control outputs; the frame bits stay
+            # on the device when fetch_bits is off
+            consumed, valid = consumed.cpu().numpy(), valid.cpu().numpy()
+            bits_h = bits.cpu().numpy() if self.fetch_bits else bits
+            results = []
+            for k in range(K):
+                for i in ready:
+                    if valid[i, k]:
+                        results.append((i, bits_h[i, k]))
+            for i in ready:
+                nb_ok = int(valid[i].sum())
+                self._advance(i, int(consumed[i]))
+                if nb_ok < K:
+                    self.tracking[i] = False
+                    self._advance(i, d.params.nb_null_period)
+            self.frames_emitted += len(results)
+            return results
+
+        # ready streams contribute real windows; the others get idle rows,
+        # and their carry is restored afterwards
+        ready, wins, mask = self._ready_block(d.window_len)
+        if not ready:
+            return []
+        self.carry, out = self._masked_step(self.carry, wins, mask)
+        sync_ok = out["sync_ok"].cpu().numpy()
+        offsets = out["offset"].cpu().numpy()
+        bits = out["bits"].cpu().numpy() if self.fetch_bits else out["bits"]
+        results = []
+        for i in ready:
+            if sync_ok[i]:
+                results.append((i, bits[i]))
+                self._advance(i, int(offsets[i]) + d.frame_advance)
+            else:
+                self.tracking[i] = False
+                self._advance(i, d.params.nb_null_period)
+        self.frames_emitted += len(results)
+        return results
+
+    def run_available(self, max_rounds: int = 1000):
+        """Drain all buffered samples; yields (stream_idx, bits)."""
+        for _ in range(max_rounds):
+            res = self.step()
+            if not res:
+                break
+            yield from res

@@ -295,6 +295,15 @@ class DabReceiver:
         self.__dict__.update(d)
         self.device = torch.device(d["device"])
 
+    def to(self, device) -> "DabReceiver":
+        """Move the receiver, its FIC decoder and every channel's
+        deinterleaver history to `device`."""
+        self.device = torch.device(device)
+        self.fic.to(self.device)
+        for ch in self.channels.values():
+            ch.msc.to(self.device)
+        return self
+
     def snapshot(self) -> bytes:
         """Serialize the full receiver decode state: database, every
         channel's deinterleaver/superframe/PAD/MOT state. External observers

@@ -12,7 +12,9 @@ B streams and returns their decoded, descrambled FIB and subchannel bits:
   descramble.
 
 It is plain functions on tensors of the step's device; only the Viterbi
-decode is a hand-written kernel (``kernels/viterbi_acs.py``). The mesh
+decode is a hand-written kernel (``kernels/viterbi_acs.py``), and only with
+the default ``chainback`` and ``viterbi_branch``: the other decode variants
+are torch loops over the trellis (``ops/viterbi.py``). The mesh
 version over several GPUs (``multichip_receiver_step``, the 'ens', 'time'
 and 'sub' axes) is not ported yet.
 """
@@ -152,11 +154,25 @@ def receiver_step(device, transmission_mode: int = 2,
     stop_after ends the round after a prefix and returns (carry,
     deint_hist, {"digest": scalar}) for timing the stages: "ingest",
     "demod", "subs" (frame regather, FIC slice, CIF slices), "deint",
-    "depunct" (the Viterbi lanes), "acs" (the forward pass alone, through
-    the forward kernel). The state advances as far as the prefix reaches.
+    "depunct" (the Viterbi lanes), "acs" (the forward pass alone: through
+    the forward kernel, or with viterbi_branch="lut" through the torch
+    radix-4 loop with the LUT metrics). The state advances as far as the
+    prefix reaches.
 
-    viterbi, chainback and viterbi_branch take only their defaults: the
-    other decode variants are not ported (ROADMAP.md Queue 1 item 9)."""
+    viterbi picks the decode of the lanes: "exact" (the full trellis),
+    "tiled" (overlap-save windows of 128 + 2 * 96 steps, see
+    ops/viterbi.py:viterbi_decode_soft_tiled; the path errors are then
+    reported as zeros, and fused FIC lanes decode tiled too, while the
+    standalone FIC decode stays exact) or "radix8" (exact, three trellis
+    steps a loop iteration). chainback is "sequential", "parallel" (log-depth
+    map composition) or "fused" (register exchange); viterbi_branch is
+    "matmul" or "lut" (the 16-entry branch metrics) and applies to every
+    decode of the round. All give the same bits except "tiled", whose
+    accuracy contract is its own. With chainback="sequential" and
+    viterbi_branch="matmul", "exact" and "tiled" run K1 in one launch; every
+    other combination, and "radix8", runs the algorithm it names as torch
+    operations, far slower on a GPU (root PERF.md). radix8 goes with the
+    sequential or the parallel chainback and with "matmul" only."""
     from ..ops import viterbi as vit
     from ..ops.deinterleave import (make_gather_index,
                                     deinterleave_push_block, DEPTH)
@@ -169,13 +185,14 @@ def receiver_step(device, transmission_mode: int = 2,
         raise NotImplementedError(
             "transmission mode III FIC (32-CU FIB groups) is unsupported: "
             "the puncture schedule is known for 2304-bit FIB groups only")
-    for name, value, default in (("viterbi", viterbi, "exact"),
-                                 ("chainback", chainback, "sequential"),
-                                 ("viterbi_branch", viterbi_branch, "matmul")):
-        if value != default:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet: only {default!r} is "
-                "(the decode variants are ROADMAP.md Queue 1 item 9)")
+    if viterbi not in ("exact", "tiled", "radix8"):
+        raise ValueError(f"viterbi must be 'exact', 'tiled' or 'radix8', "
+                         f"got {viterbi!r}")
+    vit._check_flags(chainback, viterbi_branch)
+    if viterbi == "radix8" and chainback == "fused":
+        raise ValueError("radix8 has no register-exchange (fused) chainback")
+    if viterbi == "radix8" and viterbi_branch == "lut":
+        raise ValueError("radix8 implements only the matmul branch route")
     if ingest not in ("u8", "pairs"):
         raise ValueError(f"ingest must be 'u8' or 'pairs', got {ingest!r}")
     if stop_after not in STOP_AFTER:
@@ -290,7 +307,9 @@ def receiver_step(device, transmission_mode: int = 2,
                                                           fic_spec.nb_in)
         fib_bits = fic_err = None
         if not fuse_fic:
-            fib_bits, fic_err = vit.viterbi_decode(fic_soft, fic_spec)
+            fib_bits, fic_err = vit.viterbi_decode(
+                fic_soft, fic_spec, chainback=chainback,
+                branch=viterbi_branch)
             fib_bits = (fib_bits ^ fic_prbs).reshape(
                 B, F, dab.nb_cifs, fic_spec.nb_data_bits)
 
@@ -331,10 +350,25 @@ def receiver_step(device, transmission_mode: int = 2,
         if stop_after == "depunct":
             return carry, deint_hist, {"digest": _digest(lanes)}
         if stop_after == "acs":
-            dec, err = k1.viterbi_acs(lanes)
-            return carry, deint_hist, {"digest": _digest(dec, err)}
+            if viterbi_branch == "matmul":
+                dec, metrics = k1.viterbi_acs(lanes)      # metrics: the err
+            else:
+                metrics, dec = vit._radix4_forward_sm(
+                    vit._start_sm(lanes.shape[0], 0, device),
+                    vit._steps_sm(lanes, 2), branch=viterbi_branch)
+            return carry, deint_hist, {"digest": _digest(dec, metrics)}
 
-        bits_full, err_full = vit.viterbi_decode_soft(lanes)
+        if viterbi == "tiled":
+            bits_full, _ = vit.viterbi_decode_soft_tiled(
+                lanes, chainback=chainback, branch=viterbi_branch)
+            err_full = torch.zeros((lanes.shape[0],), dtype=torch.int32,
+                                   device=device)
+        elif viterbi == "radix8":
+            bits_full, err_full = vit.viterbi_decode_soft_radix8(
+                lanes, chainback=chainback)
+        else:
+            bits_full, err_full = vit.viterbi_decode_soft_radix4(
+                lanes, chainback=chainback, branch=viterbi_branch)
         if fuse_fic:
             fib_bits = (bits_full[L_msc:, :fic_spec.nb_data_bits]
                         ^ fic_prbs).reshape(B, F, dab.nb_cifs,

@@ -48,12 +48,43 @@ def test_every_counted_kernel_is_reported(smoke):
     assert set(smoke.REPLACES) == set(K.LAUNCHES) == set(smoke.REPORT_SHAPE) \
         == set(smoke.KERNEL_PATH)
     shapes = {name for name, _, _ in smoke.K1_SHAPES} | {"eep4a_864cu"}
-    assert set(smoke.REPORT_SHAPE.values()) <= shapes
+    assert set(smoke.WINDOWS_OF) <= shapes
+    assert set(smoke.REPORT_SHAPE.values()) <= shapes | set(
+        smoke.WINDOWS_OF.values())
     assert K.plan(4, smoke.LONG_T)[0] == "pair"
     for _, B, T in smoke.K1_SHAPES:
         assert K.plan(B, T)[0] == "fused"
     # each kernel's path is one whose launches the script reads
-    assert set(smoke.KERNEL_PATH.values()) <= {"main", "long", "fleet"}
+    assert set(smoke.KERNEL_PATH.values()) <= {"main", "long", "fleet",
+                                               "fleet_tiled"}
+    assert smoke.launched(viterbi_acs=2) == dict(
+        dict.fromkeys(K.LAUNCHES, 0), viterbi_acs=2)
+
+
+def test_window_shapes_of_the_tiled_decode(smoke):
+    """The windowed entry's four shapes follow from the exact shapes: ceil(T
+    / 128) windows of 320 steps a message; the fleet round's 126,464 plan as
+    16 a block; the bounds are those of 285 operations a window step."""
+    from dab_radio_tpu_torch.ops import viterbi as vit
+    lanes = {name: (B, T) for name, B, T in smoke.K1_SHAPES}
+    lanes["eep4a_864cu"] = (4, smoke.LONG_T)
+    nb = {smoke.WINDOWS_OF[n]: B * -(-T // 128) for n, (B, T) in lanes.items()
+          if n in smoke.WINDOWS_OF}
+    assert nb == {"fic_tiled": 28, "msc_group_tiled": 936, "long_tiled": 1300,
+                  "round16x8_tiled": 126464}
+    w, first = vit.tile_windows(torch.zeros((4, 774, 4), dtype=torch.int8))
+    assert tuple(w.shape) == (28, smoke.WINDOW_L, 4) and int(first.sum()) == 4
+    assert K.plan(126464, 320) == ("fused", 16, 6976)
+    assert smoke.REPORT_SHAPE["viterbi_decode_windows"] == "round16x8_tiled"
+    for B, want in ((1300, 0.0071), (126464, 0.689)):
+        ms, by = smoke.bound("viterbi_decode_windows", B, 320)
+        assert by == "operations" and ms == pytest.approx(want, rel=5e-3)
+        assert ms == pytest.approx(smoke.bound("viterbi_decode_fused", B,
+                                               320)[0])
+    # the plain version is compared in chunks that fit the card's memory
+    assert 126464 % smoke.WINDOW_PLAIN_CHUNK == 0
+    assert 3 * smoke.WINDOW_PLAIN_CHUNK * 320 * 128 * 4 < 8e9
+    assert smoke.VARIANT_STREAMS * (18 * 4 + 4) * smoke.VARIANT_K == 608
 
 
 def test_fleet_rounds_shape(smoke):

@@ -55,8 +55,7 @@ def test_viterbi_kernels_match_plain(cuda, B, T):
     dec, err = K.viterbi_acs(dc)
     bits = K.chainback(dec)
     torch.cuda.synchronize()
-    assert K.LAUNCHES == {"viterbi_decode_fused": 0, "viterbi_acs": 1,
-                          "viterbi_chainback": 1}
+    assert K.LAUNCHES == K.launched(viterbi_acs=1, viterbi_chainback=1)
     assert K.ACS_LAUNCHES_BY_T == {T: 1}
     pdec, perr = K.viterbi_acs_plain(dc)
     assert torch.equal(dec, pdec) and torch.equal(err, perr)
@@ -74,12 +73,128 @@ def test_fused_viterbi_kernel_matches_plain(cuda, B, T):
     K.reset_launches()
     bits, err = K.decode(dc)
     torch.cuda.synchronize()
-    assert K.LAUNCHES == {"viterbi_decode_fused": 1, "viterbi_acs": 0,
-                          "viterbi_chainback": 0}
+    assert K.LAUNCHES == K.launched(viterbi_decode_fused=1)
     assert K.ACS_LAUNCHES_BY_T == {T: 1}
     pdec, perr = K.viterbi_acs_plain(dc)
     assert torch.equal(err, perr)
     assert torch.equal(bits, K.chainback_plain(pdec))
+
+
+@pytest.mark.parametrize("B,T", [(4, 774), (300, 320), (2, 1031),
+                                 (2, K.MAX_FUSED_T + 2)])
+@pytest.mark.parametrize("start,end", [(37, 22), (0, 63), (1, 0), (63, 63)])
+def test_start_and_end_states_on_cuda_match_plain(cuda, B, T, start, end):
+    """The best path between states other than 0 runs the kernels too, the
+    fused one or the pair as the shape says, never the plain version."""
+    from dab_radio_tpu_torch.ops import viterbi as vit
+    dc = torch.as_tensor(_symbols(B, T), device=cuda)
+    fused = T <= K.MAX_FUSED_T
+    K.reset_launches()
+    bits, err = vit.viterbi_decode_soft(dc, start, end)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == K.launched(viterbi_decode_fused=int(fused),
+                                    viterbi_acs=int(not fused),
+                                    viterbi_chainback=int(not fused))
+    pdec, perr = K.viterbi_acs_plain(dc, start, end)
+    assert torch.equal(err, perr)
+    assert torch.equal(bits, K.chainback_plain(pdec, end))
+    if T % 2 == 0:
+        K.reset_launches()
+        rbits, rerr = vit.viterbi_decode_soft_radix4(dc, start, end)
+        assert K.LAUNCHES[
+            "viterbi_decode_fused" if fused else "viterbi_acs"] == 1
+        assert torch.equal(rbits, bits) and torch.equal(rerr, err)
+    for bad in ((64, 0), (0, -1)):
+        with pytest.raises(ValueError):
+            K.decode(dc, *bad)
+
+
+WINDOWS = [(28, 320), (936, 320), (1300, 320), (5, 32), (7, 1000), (300, 58)]
+
+
+@pytest.mark.parametrize("B,L", WINDOWS)
+def test_windowed_kernel_matches_plain(cuda, B, L):
+    """K1's windowed mode: first tiles and interior tiles mixed, an all-tie
+    window among them (every final metric equal: the anchor is state 0)."""
+    rng = np.random.default_rng(L)
+    dc = torch.as_tensor(_symbols(B, L), device=cuda)
+    first = torch.as_tensor(rng.random(B) < 0.3, device=cuda)
+    K.reset_launches()
+    bits = K.decode_windows(dc, first)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == K.launched(viterbi_decode_windows=1)
+    assert K.ACS_LAUNCHES_BY_T == {L: 1}
+    assert bits.dtype == torch.int8 and tuple(bits.shape) == (B, L)
+    assert torch.equal(bits, K.decode_windows_plain(dc, first))
+    for flags in (torch.ones_like(first), torch.zeros_like(first)):
+        assert torch.equal(K.decode_windows(dc, flags),
+                           K.decode_windows_plain(dc, flags))
+    cbits = K.decode_windows(dc.cpu(), first.cpu())     # CPU: plain version
+    assert torch.equal(bits.cpu(), cbits)
+
+
+def test_windowed_kernel_at_the_fleet_rounds_shape(cuda):
+    """126,464 windows of 320 steps (9,728 lanes of 13 tiles) in one launch,
+    held against the plain version on the first, some interior and the last
+    1,300 windows."""
+    B, L = 126464, 320
+    assert K.plan(B, L) == ("fused", 16, 6976)
+    rng = np.random.default_rng(6)
+    dc = torch.as_tensor(rng.integers(-127, 128, (B, L, 4)).astype(np.int8),
+                         device=cuda)
+    first = (torch.arange(B, device=cuda) % 13) == 0
+    K.reset_launches()
+    bits = K.decode_windows(dc, first)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == K.launched(viterbi_decode_windows=1)
+    for lo in (0, 61100, B - 1300):
+        sl = slice(lo, lo + 1300)
+        assert torch.equal(bits[sl], K.decode_windows_plain(dc[sl], first[sl]))
+
+
+def test_tiled_decode_on_cuda_takes_one_windowed_launch(cuda):
+    """ops/viterbi.py on a CUDA tensor: the tiled decode with the default
+    flags is one windowed launch and equals the CPU's; any other flag runs
+    torch on the card and launches nothing; both give the same bits."""
+    from dab_radio_tpu_torch.ops import viterbi as vit
+    d = _symbols(6, 1542)
+    dc = torch.as_tensor(d, device=cuda)
+    K.reset_launches()
+    bits, none = vit.viterbi_decode_soft_tiled(dc)
+    assert none is None and K.LAUNCHES == K.launched(viterbi_decode_windows=1)
+    assert K.ACS_LAUNCHES_BY_T == {320: 1}
+    assert torch.equal(bits.cpu(),
+                       vit.viterbi_decode_soft_tiled(torch.as_tensor(d))[0])
+    K.reset_launches()
+    for kw in (dict(chainback="parallel"), dict(chainback="fused"),
+               dict(branch="lut")):
+        other, _ = vit.viterbi_decode_soft_tiled(dc, **kw)
+        assert other.device.type == "cuda" and torch.equal(other, bits), kw
+    want, werr = vit.viterbi_decode_soft_radix4(dc)
+    assert K.LAUNCHES == K.launched(viterbi_decode_fused=1)
+    for fn, kw in ((vit.viterbi_decode_soft_radix4, dict(chainback="parallel")),
+                   (vit.viterbi_decode_soft_radix4, dict(chainback="fused")),
+                   (vit.viterbi_decode_soft_radix4, dict(branch="lut")),
+                   (vit.viterbi_decode_soft_radix8, {}),
+                   (vit.viterbi_decode_soft_radix8, dict(chainback="parallel"))):
+        got, gerr = fn(dc, **kw)
+        assert torch.equal(got, want) and torch.equal(gerr, werr), kw
+    assert K.LAUNCHES == K.launched(viterbi_decode_fused=1)
+
+
+def test_windowed_wrapper_checks_cuda_inputs(cuda):
+    d = torch.zeros((2, 10, 4), dtype=torch.int8, device=cuda)
+    ok = torch.zeros(2, dtype=torch.bool, device=cuda)
+    for bad_d in (d.to(torch.int32), d[:, :, :3],
+                  torch.zeros(81, dtype=torch.int8, device=cuda)[1:]
+                  .view(2, 10, 4)):
+        with pytest.raises(ValueError):
+            K.decode_windows(bad_d, ok)
+    for bad_mask in (ok.cpu(), ok[:1], ok.to(torch.uint8), ok[:, None]):
+        with pytest.raises(ValueError):
+            K.decode_windows(d, bad_mask)
+    empty = K.decode_windows(d[:0], ok[:0])
+    assert tuple(empty.shape) == (0, 10)
 
 
 def test_long_trellis_takes_the_kernel_pair(cuda):
@@ -88,10 +203,11 @@ def test_long_trellis_takes_the_kernel_pair(cuda):
     K.reset_launches()
     bits, err = K.decode(dc)
     torch.cuda.synchronize()
-    assert K.LAUNCHES == {"viterbi_decode_fused": 0, "viterbi_acs": 1,
-                          "viterbi_chainback": 1}
+    assert K.LAUNCHES == K.launched(viterbi_acs=1, viterbi_chainback=1)
     with pytest.raises(ValueError):
         K.decode_fused(dc)
+    with pytest.raises(ValueError, match="shared memory"):   # no windowed pair
+        K.decode_windows(dc, torch.ones(2, dtype=torch.bool, device=cuda))
     short = dc[:, :K.MAX_FUSED_T].contiguous()          # the last T that fits
     fbits, ferr = K.decode_fused(short)
     dec, perr = K.viterbi_acs(short)
@@ -227,8 +343,7 @@ def test_fused_round_on_cuda_matches_cpu(cuda):
         K.reset_launches()
         *gstate, gout = gstep(*gstate, blk, tail)
         torch.cuda.synchronize()
-        assert K.LAUNCHES == {"viterbi_decode_fused": 1, "viterbi_acs": 0,
-                              "viterbi_chainback": 0}
+        assert K.LAUNCHES == K.launched(viterbi_decode_fused=1)
         *cstate, cout = cstep(*cstate, blk, tail)
         for k in ("fib_bits", "msc_bits", "offsets"):
             assert gout[k].device.type == "cuda"

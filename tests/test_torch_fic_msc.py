@@ -8,6 +8,7 @@ import dataclasses
 import pickle
 
 import numpy as np
+import pytest
 import torch
 
 from dab_radio_tpu.params import SubchannelConfig as JConfig
@@ -127,3 +128,40 @@ def test_msc_state_from_jax_resumes_mid_fill():
     state = pickle.loads(pickle.dumps(dt)).__getstate__()
     assert isinstance(state["history"], np.ndarray)
     np.testing.assert_array_equal(state["history"], np.asarray(dj.history))
+
+
+@pytest.mark.parametrize("std", [40.0, 75.0], ids=["operating", "heavy"])
+def test_tiled_decode_mode_matches_jax(std):
+    """set_decode_mode("tiled") through MSCDecoder (per CIF and per frame)
+    and the group decode: the JAX package's payloads in its tiled mode, at
+    an operating noise level, where they are also the exact mode's, and at a
+    heavy one, where they need not be."""
+    rng = np.random.default_rng(7)
+    frames = _noisy(_msc_stream([EEP, EEP_B, UEP], 6, seed=5), rng,
+                    std=np.sqrt(max(std ** 2 - 40.0 ** 2, 0.0)))
+    exact = tmsc.MSCDecoder(_t(UEP))
+    want_exact = [p for f in frames for p in exact.decode_frame(f)]
+    try:
+        jmsc.set_decode_mode("tiled")
+        tmsc.set_decode_mode("tiled")
+        dj, dt = jmsc.MSCDecoder(UEP), tmsc.MSCDecoder(_t(UEP))
+        cj, ct = jmsc.MSCDecoder(UEP), tmsc.MSCDecoder(_t(UEP))
+        gj = [jmsc.MSCDecoder(EEP), jmsc.MSCDecoder(EEP_B)]
+        gt = [tmsc.MSCDecoder(_t(EEP)), tmsc.MSCDecoder(_t(EEP_B))]
+        got = []
+        for f in frames:
+            pt = dt.decode_frame(f)
+            assert pt == dj.decode_frame(f)
+            got += pt
+            assert [ct.decode_cif(c) for c in f] == \
+                [cj.decode_cif(c) for c in f] == pt
+            assert tmsc.decode_frame_group(gt, f) == \
+                jmsc.decode_frame_group(gj, f)
+    finally:
+        jmsc.set_decode_mode("exact")
+        tmsc.set_decode_mode("exact")
+    assert got[:15] == [None] * 15 and all(got[15:])
+    if std == 40.0:
+        assert got == want_exact
+    assert tmsc._DECODE_MODE == "exact"
+    assert dt.decode_frame(frames[0]) is not None       # exact again

@@ -316,16 +316,28 @@ def test_backend_and_variant_flags(caps, capsys):
             tserve.main(argv)
         with pytest.raises(RuntimeError, match="cuda"):
             tserve.main(argv + ["--backend", "cuda"])
-    for flags in (["--viterbi", "tiled"], ["--chainback", "parallel"],
-                  ["--chainback", "fused"]):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            tserve.main(argv + ["--backend", "cpu", *flags])
+    with pytest.raises(SystemExit):                  # not a value of the flag
+        tserve.main(argv + ["--backend", "cpu", "--viterbi", "radix2"])
     with pytest.raises(ValueError, match="--subchannels or --discover"):
         tserve.main(["-i", caps.paths[0], "--backend", "cpu"])
     with pytest.raises(SystemExit):
         tserve.main(["-i", caps.paths[0], "--shared-input", "--backend",
                      "cpu"])
     capsys.readouterr()
+
+
+@pytest.mark.parametrize("flags", [
+    ["--viterbi", "tiled"], ["--viterbi", "tiled", "--chainback", "parallel"],
+    ["--chainback", "fused"]], ids=lambda f: "-".join(f[1::2]))
+def test_decode_variant_flags_match_jax(caps, capsys, monkeypatch, flags):
+    """--viterbi tiled and --chainback parallel|fused: the JAX CLI's lines,
+    and at this SNR the default run's totals."""
+    argv = ["-i", caps.paths[0], "--shared-input", "--streams", "2",
+            "--subchannels", LAYOUT, "--max-rounds", "6", *BASE]
+    lines, _ = both(argv + flags, capsys, monkeypatch)
+    plain = run_cli(tserve, argv, capsys, monkeypatch)[1]
+    assert lines == plain
+    assert lines[-1]["rounds"] == 6 and lines[-1]["access_units"] > 0
 
 
 def test_parse_subchannels_and_load_u8(tmp_path):

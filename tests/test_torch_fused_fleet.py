@@ -403,5 +403,34 @@ def test_kinds_and_device_arguments():
                subchannel_kinds=[["audio", "mp2"], [("packet", 3, 1)]])
     assert f._kinds == [["audio", "mp2"], [("packet", 3, 1), "audio"]]
     assert f._sfp[0][1] is None and f._sfp[1][0]._fec is not None
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TFleet(1, tcfgs(AUDIO_CFGS), MODE, 2, device=CPU, viterbi="tiled")
+    # every decode variant is accepted; what the round rejects, it rejects
+    f = TFleet(1, tcfgs(AUDIO_CFGS), MODE, 2, device=CPU, viterbi="tiled")
+    assert f._viterbi == "tiled"
+    with pytest.raises(ValueError, match="radix8"):
+        TFleet(1, tcfgs(AUDIO_CFGS), MODE, 2, device=CPU, viterbi="radix8",
+               chainback="fused")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(viterbi="tiled"), dict(viterbi="tiled", chainback="parallel"),
+    dict(chainback="fused", viterbi_branch="lut")],
+    ids=lambda kw: "-".join(kw.values()))
+def test_decode_variants_match_jax_and_survive_a_snapshot(streams, kw):
+    """A fleet built with a decode variant gives the JAX fleet's events
+    (and, at this SNR, the default fleet's), and a snapshot taken from it
+    restores the variant."""
+    u8 = streams[:, :2 * 24 * 49152]                    # 6 rounds
+    want = full_run(JFleet(2, AUDIO_CFGS, MODE, K, **kw), u8)
+    fleet = make_tfleet(**kw)
+    events = record(fleet)
+    drive(fleet, u8, range(3))
+    resumed = TFleet.from_snapshot(fleet.snapshot(), CPU)
+    assert (resumed._viterbi, resumed._chainback, resumed._viterbi_branch) \
+        == (fleet._viterbi, fleet._chainback, fleet._viterbi_branch) \
+        == (kw.get("viterbi", "exact"), kw.get("chainback", "sequential"),
+            kw.get("viterbi_branch", "matmul"))
+    events2 = record(resumed)
+    drive(resumed, u8, range(3, 6))
+    assert events + events2 == want["events"]
+    assert resumed.summary() == want["summary"]
+    assert any(e[0] == "au" for e in events2)

@@ -270,13 +270,88 @@ def test_stop_after_prefix_advances_state_as_the_full_step(captures, mesh,
     assert_state_close((jc, jh), (tc, th))
 
 
+VARIANTS = [dict(viterbi="tiled"), dict(viterbi="radix8"),
+            dict(chainback="parallel"), dict(chainback="fused"),
+            dict(viterbi_branch="lut")]
+
+
+@pytest.mark.parametrize("kw", VARIANTS, ids=lambda kw: "-".join(kw.values()))
+def test_each_decode_variant_matches_jax(captures, mesh, kw):
+    """Each flag builds a round that gives the bits, path errors and offsets
+    of the JAX round built with the same flag (the tiled round reports its
+    errors as zeros in both)."""
+    both = build_both(mesh, LAYOUT_A, 1, ingest="u8", fuse_fic=True, **kw)
+    outs = run_both(both, rounds_u8(captures[:1], 2))
+    if kw.get("viterbi") == "tiled":
+        assert not outs[-1]["msc_err"].any() and not outs[-1]["fic_err"].any()
+
+
+@pytest.mark.parametrize("kw,bad", zip(VARIANTS, [
+    dict(viterbi="radix2"), dict(viterbi="radix8", chainback="fused"),
+    dict(chainback="log"), dict(viterbi="radix8", chainback="fused"),
+    dict(viterbi="radix8", viterbi_branch="lut")]),
+    ids=["-".join(kw.values()) for kw in VARIANTS])
+def test_decode_variants_that_are_not_ported_raise(kw, bad):
+    """Every flag of the JAX step builds a round in the port; what is not
+    ported because the JAX step has no such value or rejects the
+    combination raises, as there."""
+    receiver_step("cpu", MODE, F, **kw)
+    with pytest.raises(ValueError, match="radix8|must be"):
+        receiver_step("cpu", MODE, F, **bad)
+
+
 @pytest.mark.parametrize("kw", [
-    dict(viterbi="tiled"), dict(viterbi="radix8"),
-    dict(chainback="parallel"), dict(chainback="fused"),
-    dict(viterbi_branch="lut")], ids=lambda kw: "-".join(kw.values()))
-def test_decode_variants_that_are_not_ported_raise(kw):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        receiver_step("cpu", MODE, F, **kw)
+    dict(viterbi="tiled", chainback="parallel"),
+    dict(viterbi="tiled", chainback="fused", viterbi_branch="lut"),
+    dict(viterbi="radix8", chainback="parallel"),
+    dict(chainback="parallel", viterbi_branch="lut"),
+    dict(viterbi="tiled", fuse_fic=False),
+    dict(chainback="fused", fuse_fic=False)],
+    ids=lambda kw: "-".join(str(v) for v in kw.values()))
+def test_combined_decode_flags_match_jax(captures, mesh, kw):
+    """Flags together, and with the FIC decoded apart: the standalone FIC
+    decode takes chainback and viterbi_branch and stays exact under
+    viterbi="tiled", so its path errors are real there."""
+    kw = dict(dict(fuse_fic=True), **kw)
+    both = build_both(mesh, LAYOUT_A, 1, ingest="u8", **kw)
+    outs = run_both(both, rounds_u8(captures[:1], 1))
+    if kw.get("viterbi") == "tiled":
+        assert not outs[-1]["msc_err"].any()
+        assert kw["fuse_fic"] or outs[-1]["fic_err"].any()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(viterbi="tiled"), dict(viterbi="radix8"), dict(chainback="parallel"),
+    dict(chainback="fused"), dict(viterbi_branch="lut")],
+    ids=lambda kw: "-".join(kw.values()))
+def test_exact_variants_equal_the_default_round(captures, kw):
+    """Inside the port: every exact variant gives the default round's
+    outputs bit for bit; the tiled round gives its bits at this SNR."""
+    (blk, tail), = rounds_u8(captures[:1], 1)
+    common = dict(subchannels_per_shard=3, ensembles_per_shard=1, ingest="u8",
+                  subchannel_cfgs=[own(c) for c in LAYOUT_A], fuse_fic=True)
+    ref, (carry, hist, _) = receiver_step("cpu", MODE, F, **common)
+    var, _ = receiver_step("cpu", MODE, F, **common, **kw)
+    want, got = ref(carry, hist, blk, tail)[2], var(carry, hist, blk, tail)[2]
+    keys = ("fib_bits", "msc_bits", "offsets") \
+        if kw.get("viterbi") == "tiled" else tuple(want)
+    for k in keys:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_stop_after_acs_with_lut_branch(captures):
+    """stop_after="acs" with viterbi_branch="lut" runs the torch forward
+    pass with the LUT metrics and leaves the state as the kernel route."""
+    (blk, tail), = rounds_u8(captures[:1], 1)
+    common = dict(subchannels_per_shard=3, ensembles_per_shard=1, ingest="u8",
+                  subchannel_cfgs=[own(c) for c in LAYOUT_A], fuse_fic=True,
+                  stop_after="acs")
+    a, (carry, hist, _) = receiver_step("cpu", MODE, F, **common)
+    b, _ = receiver_step("cpu", MODE, F, viterbi_branch="lut", **common)
+    ca, ha, oa = a(carry, hist, blk, tail)
+    cb, hb, ob = b(carry, hist, blk, tail)
+    assert torch.equal(ha, hb) and all(torch.equal(x, y) for x, y in zip(ca, cb))
+    assert torch.isfinite(oa["digest"]) and torch.isfinite(ob["digest"])
 
 
 def test_bad_arguments_raise():

@@ -1,8 +1,9 @@
 """The PyTorch port loads neither JAX nor the JAX package: in a fresh
 interpreter, import every module of the package and run its main path
-(transmitter -> u8 file -> radio_cli, then fleet_serve, on the CPU) for a
-few frames, then check sys.modules; and no source file of the port imports
-either."""
+(transmitter -> u8 file -> radio_cli, then fleet_serve, each also with the
+decode variants, then MultiStreamDemodulator into ReceiverFleet, on the CPU)
+for a few frames, then check sys.modules; and no source file of the port
+imports either."""
 
 import ast
 import glob
@@ -42,6 +43,24 @@ SCRIPT = textwrap.dedent("""
                              "--subchannels", "0:12:EEP3A",
                              "--frames-per-step", "1", "--prefetch", "1",
                              "--backend", "cpu"]) == 0
+    assert radio_cli.main(["-i", path, "-F", "u8", "--backend", "cpu",
+                           "--viterbi", "tiled"]) == 0
+    assert radio_cli.main(["-i", path, "-F", "u8", "--backend", "cpu"]) == 0
+    assert fleet_serve.main(["-i", path, "--subchannels", "0:12:EEP3A",
+                             "--frames-per-step", "1", "--viterbi", "tiled",
+                             "--chainback", "parallel", "--backend",
+                             "cpu"]) == 0
+    from dab_radio_tpu_torch.models.demodulator import OFDMDemodulator
+    from dab_radio_tpu_torch.models.fleet import ReceiverFleet
+    from dab_radio_tpu_torch.models.multistream import MultiStreamDemodulator
+    ms = MultiStreamDemodulator(OFDMDemodulator(1), 1, ingest="u8",
+                                fetch_bits=False, device="cpu")
+    fleet = ReceiverFleet(1, 1, pipeline_depth=1, device="cpu")
+    ms.push(0, np.fromfile(path, np.uint8))
+    for frames in iter(ms.step, []):
+        fleet.process_frames(frames)
+    fleet.flush()
+    assert fleet.summary()["frames"] == 2 and fleet.receivers[0].db.services
     assert "jax" not in sys.modules, "the main path loaded jax"
     loaded = [m for m in sys.modules
               if m == "dab_radio_tpu" or m.startswith("dab_radio_tpu.")]

@@ -146,13 +146,49 @@ def test_radio_cli_matches_jax_cli(capture, tmp_path, capfd, monkeypatch):
 
 
 def test_radio_cli_refuses_what_is_not_ported(tmp_path):
+    """--viterbi tiled is ported and sets the process's decode mode (a run
+    without the flag sets it back); the card is still refused without one."""
+    from dab_radio_tpu_torch.dab import msc as tmsc
     path = tmp_path / "empty.u8"
     path.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tcli.main(["-i", str(path), "--viterbi", "tiled", "--backend", "cpu"])
+    assert tcli.main(["-i", str(path), "--viterbi", "tiled",
+                      "--backend", "cpu"]) == 0
+    assert tmsc._DECODE_MODE == "tiled"
+    assert tcli.main(["-i", str(path), "--backend", "cpu"]) == 0
+    assert tmsc._DECODE_MODE == "exact"
+    with pytest.raises(ValueError, match="decode mode"):
+        tmsc.set_decode_mode("radix8")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tcli.main(["-i", str(path), "--backend", "cuda"])
+
+
+def test_radio_cli_tiled_matches_jax_cli(capture, tmp_path, capfd, monkeypatch):
+    """--viterbi tiled through both CLIs: the same summaries, and no decode
+    error at this SNR."""
+    from dab_radio_tpu.dab import msc as jmsc
+    from dab_radio_tpu_torch.dab import msc as tmsc
+    monkeypatch.setattr(jcli.summarize, "__defaults__", (sys.stderr,))
+    monkeypatch.setattr(jax_cache, "enable_compile_cache", lambda: None)
+    path = tmp_path / "capture.u8"
+    path.write_bytes(iq_quantize_u8(capture / np.abs(capture).max() * 0.5))
+    argv = ["-i", str(path), "-F", "u8", "--benchmark", "--backend", "cpu",
+            "--viterbi", "tiled"]
+    try:
+        capfd.readouterr()
+        assert jcli.main(argv) == 0
+        jerr = capfd.readouterr().err
+        assert tcli.main(argv) == 0
+        terr = capfd.readouterr().err
+    finally:
+        jmsc.set_decode_mode("exact")
+        tmsc.set_decode_mode("exact")
+
+    def summary(text):
+        return [ln for ln in text.splitlines()
+                if not ln.startswith("benchmark:")]
+    assert summary(terr) == summary(jerr)
+    assert "desync=0" in terr and "rs_err=0 au_err=0" in terr
 
 
 def test_radio_cli_snapshot_resume_matches_one_run(capture, tmp_path, capfd):
