@@ -51,7 +51,19 @@ It exits non-zero, printing no result, when there is no card. Phases:
    card) into ReceiverFleet (pipeline depth 2): every access unit
    byte-exact, no desync, and a round one fused launch for the stacked FIC
    and one for each protection shape of the MSC;
-11. which host native libraries run as shared libraries, a JSON line of the
+11. the multi-GPU receiver on the one card: multichip_receiver_step over a
+   process group of one rank (NCCL) on the 16 streams of the fleet path,
+   every output and the state equal to receiver_step's, one fused launch a
+   round, and FusedFleet on that mesh with every access unit byte-exact;
+   then 4 rank processes on a (1, 2, 2) mesh over gloo, all on the card
+   (this script with --mesh-rank): the dry run of parallel/dryrun.py,
+   bit-exact against the one-device decoders with two fused launches a rank
+   (FIC and MSC), then FusedFleet on that mesh over the 16 streams of the
+   fleet path, every rank fed the whole round: every access unit
+   byte-exact, one fused launch a round on every rank, every rank's health
+   signals equal; the step's time between CUDA events, the round walls, the
+   collectives' wall time and host copies;
+12. which host native libraries run as shared libraries, a JSON line of the
    kernels, then the last line {"ok": true, "device": {...}}.
 
 Scratch files go to build/chip_smoke/ in the checkout.
@@ -66,6 +78,11 @@ the fleet path: 16 streams through FusedFleet, 5 warm rounds under
 torch.profiler (round wall, device busy share, device time by kernel), and
 the round's stop_after ladder in ms a round. The numbers are printed and
 written to build/chip_smoke/measure.json.
+
+    python3 chip_smoke.py --mesh-only --mesh-backend nccl
+
+runs the captures and the 4 rank processes of phase 11 alone, over NCCL
+with a card a rank (4 cards).
 """
 
 import argparse
@@ -121,6 +138,11 @@ VARIANT_STREAMS = 2
 VARIANT_K = 4
 BATCHED_STREAMS = 4
 BATCHED_K = 4
+# the mesh dry run: 4 rank processes on the one card, one stream in 2 time
+# blocks of 10 frames, 2 subchannels on 2 sub ranks; each may take this long
+MESH_RANKS = 4
+MESH_AXES = (1, 2, 2)
+MESH_TIMEOUT_S = 300
 PLAIN_TIMED = ("fic", "msc_group")      # the plain loops take 0.1 to 0.9 s
 # the plain forward pass holds (B, T, 128) branch metrics in float32 and in
 # int32 and a (T, B, 64) int64 product: it is run on this many messages at
@@ -1029,6 +1051,254 @@ def batched_path(dev, paths, sents):
     return launches
 
 
+def _events_ms(fn):
+    """(fn(), the time between CUDA events around it in ms)."""
+    import torch
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def mesh_world1(dev, paths, sents, backend="nccl"):
+    """multichip_receiver_step on a process group of one rank against
+    receiver_step, on the 16 streams of the fleet path, 3 rounds of 8
+    frames: every output, the carry and the history equal; one fused launch
+    a round of the mesh step. The same rounds through FusedFleet on that
+    mesh: every access unit byte-exact."""
+    from datetime import timedelta
+    import torch
+    from dab_radio_tpu_torch.kernels import viterbi_acs as K
+    from dab_radio_tpu_torch.models.fused_fleet import FusedFleet
+    from dab_radio_tpu_torch.parallel import distributed
+    from dab_radio_tpu_torch.parallel import mesh as M
+    from dab_radio_tpu_torch.params import SubchannelConfig
+    rdzv = os.path.join(WORK, "rdzv_world1")
+    if os.path.exists(rdzv):
+        os.remove(rdzv)
+    check(distributed.initialize(f"file://{rdzv}", 1, 0, backend,
+                                 timedelta(seconds=60)),
+          "the process group of one rank did not come up")
+    try:
+        mesh = distributed.global_receiver_mesh()
+        check(mesh.groups is not None and mesh.axis_sizes == (1, 1, 1)
+              and torch.distributed.get_backend() == backend,
+              f"mesh {mesh} over {torch.distributed.get_backend()}")
+        cfgs = [SubchannelConfig(48 * i, 48, False, eep_type="A",
+                                 eep_prot_level=2) for i in range(NB_SERVICES)]
+        kw = dict(subchannels_per_shard=NB_SERVICES,
+                  ensembles_per_shard=FLEET_STREAMS, ingest="u8",
+                  subchannel_cfgs=cfgs, fuse_fic=True)
+        fleet = FusedFleet(FLEET_STREAMS, cfgs, 1, FLEET_K, device=dev,
+                           mesh=mesh)
+        streams = _aligned_streams(fleet, paths)
+        streams = [streams[k % len(paths)] for k in range(FLEET_STREAMS)]
+        chunk, tb = 2 * fleet.round_samples, fleet.tail_bytes
+        one, (c1, h1, _) = M.receiver_step(dev, 1, FLEET_K, **kw)
+        many, (c2, h2, _) = M.multichip_receiver_step(mesh, 1, FLEET_K,
+                                                      device=dev, **kw)
+        step_ms, one_ms, launches = [], [], []
+        aus = {}
+        fleet.on_access_unit.append(
+            lambda b, s, i, n, au, h: aus.setdefault((b, s), []).append(
+                bytes(au)))
+        M.reset_collectives()
+        for r in range((NB_FRAMES - 1) // FLEET_K):
+            blk, tail = (torch.as_tensor(np.stack([x[a:b] for x in streams]),
+                                         device=dev)
+                         for a, b in ((r * chunk, (r + 1) * chunk),
+                                      ((r + 1) * chunk, (r + 1) * chunk + tb)))
+            K.reset_launches()
+            (c2, h2, o2), ms = _events_ms(lambda: many(c2, h2, blk, tail))
+            launches.append(dict(K.LAUNCHES))
+            step_ms.append(ms)
+            (c1, h1, o1), ms = _events_ms(lambda: one(c1, h1, blk, tail))
+            one_ms.append(ms)
+            for k in o1:
+                check(torch.equal(o1[k], o2[k]),
+                      f"mesh step's {k} of round {r} differs from "
+                      "receiver_step's")
+            check(all(torch.equal(a, b) for a, b in zip(c1, c2))
+                  and torch.equal(h1, h2),
+                  f"mesh step's state after round {r} differs")
+            fleet.process_round(blk, tail_u8=tail)
+        check(all(n == launched(viterbi_decode_fused=1) for n in launches),
+              f"the mesh step did not launch K1 once a round: {launches}")
+        coll = dict(M.COLLECTIVES)
+        nb_aus = _check_fleet_aus(aus, sents, "mesh fleet")
+    finally:
+        distributed.shutdown()
+    log(f"mesh world 1 ({backend}): {FLEET_STREAMS} streams x "
+        f"{FLEET_K} frames, {len(step_ms)} rounds equal to receiver_step in "
+        f"every output and the state; FusedFleet on the mesh: {nb_aus} "
+        f"access units byte-exact; K1 a round {launches[-1]}; mesh step "
+        f"ms = {json.dumps([round(x, 3) for x in step_ms])}, receiver_step "
+        f"ms = {json.dumps([round(x, 3) for x in one_ms])}; collectives "
+        f"{json.dumps(coll)}")
+    return launches[-1]
+
+
+def _check_fleet_aus(aus, sents, what):
+    """Each (stream, subchannel)'s access units of {(b, s): [bytes]} are a
+    run of those sent, byte for byte; returns their count."""
+    nb = 0
+    for b in range(FLEET_STREAMS):
+        for s in range(NB_SERVICES):
+            got, sent = aus.get((b, s)), sents[b % len(sents)][0xF123 + s]
+            check(got and got[0] in sent, f"{what} stream {b} subchannel "
+                  f"{s}: no access unit, or an unknown one")
+            at = sent.index(got[0])
+            check(got == sent[at:at + len(got)], f"{what} stream {b} "
+                  f"subchannel {s}: access units differ from those sent")
+            nb += len(got)
+    return nb
+
+
+def mesh_rank(rank, init, backend):
+    """One of the MESH_RANKS processes of the mesh phase (chip_smoke.py
+    --mesh-rank R --mesh-init URL --mesh-backend B): the dry run of
+    parallel/dryrun.py on a MESH_AXES mesh, then FusedFleet on that mesh
+    over the fleet path's captures (16 streams, FLEET_K frames a round,
+    FLEET_K / n_time a time rank), every rank fed the whole round. Rank 0
+    writes the ranks' reports and the leader's access units to
+    WORK/mesh_ranks.pkl."""
+    import pickle
+    from datetime import timedelta
+    import torch
+    from dab_radio_tpu_torch.kernels import viterbi_acs as K
+    from dab_radio_tpu_torch.models.fused_fleet import FusedFleet
+    from dab_radio_tpu_torch.parallel import distributed, dryrun
+    from dab_radio_tpu_torch.parallel import mesh as M
+    from dab_radio_tpu_torch.params import SubchannelConfig
+    torch.set_num_threads(1)
+    check(distributed.initialize(init, MESH_RANKS, rank, backend,
+                                 timedelta(seconds=120)),
+          "the process group did not come up")
+    try:
+        mesh = distributed.global_receiver_mesh(MESH_AXES)
+        dev = distributed.local_device()
+        dry = dryrun.dryrun_multichip(mesh, dev)
+        cfgs = [SubchannelConfig(48 * i, 48, False, eep_type="A",
+                                 eep_prot_level=2) for i in range(NB_SERVICES)]
+        fleet = FusedFleet(FLEET_STREAMS, cfgs, 1, FLEET_K // MESH_AXES[1],
+                           device=dev, mesh=mesh)
+        paths = [os.path.join(WORK, f"capture{k}_{NB_FRAMES}.u8")
+                 for k in range(FLEET_DISTINCT)]
+        streams = _aligned_streams(fleet, paths)
+        streams = [streams[k % len(paths)] for k in range(FLEET_STREAMS)]
+        chunk, tb = 2 * fleet.round_samples, fleet.tail_bytes
+        aus = {}
+        fleet.on_access_unit.append(
+            lambda b, s, i, n, au, h: aus.setdefault((b, s), []).append(
+                bytes(au)))
+        torch.cuda.synchronize(dev)
+        K.reset_launches()
+        M.reset_collectives()
+        walls = []
+        for r in range((NB_FRAMES - 1) // FLEET_K):
+            blk, tail = (np.stack([x[a:b] for x in streams])
+                         for a, b in ((r * chunk, (r + 1) * chunk),
+                                      ((r + 1) * chunk, (r + 1) * chunk + tb)))
+            t0 = time.perf_counter()
+            fleet.process_round(blk, tail_u8=tail)
+            torch.cuda.synchronize(dev)
+            walls.append(time.perf_counter() - t0)
+        report = {"rank": rank, "coords": mesh.coords, "device": str(dev),
+                  "rows": fleet.rows, "launches": dict(K.LAUNCHES),
+                  "collectives": dict(M.COLLECTIVES), "round_wall_s": walls,
+                  "health": (fleet.drift_correction.tolist(),
+                             fleet.last_fib_ok.tolist(),
+                             fleet.materialized_rounds),
+                  "aus": aus if mesh.is_leader else None,
+                  "summary": fleet.summary() if mesh.is_leader else None}
+        reports = M._gather_objects(mesh, report, 0)
+        if rank == 0:
+            with open(os.path.join(WORK, "mesh_ranks.pkl"), "wb") as f:
+                pickle.dump({"dryrun": dry, "fleet": reports,
+                             "backend": torch.distributed.get_backend()}, f)
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def mesh_ranks(sents, backend="gloo"):
+    """MESH_RANKS processes of mesh_rank over `backend` (gloo: all on one
+    card; nccl: a card each). The dry run bit-exact, two fused launches a
+    rank; the fleet's access units byte-exact, one fused launch a round on
+    every rank, every rank's health signals equal. A rank that fails or a
+    collective that times out fails this."""
+    import pickle
+    from dab_radio_tpu_torch.parallel import dryrun
+    rdzv, out = (os.path.join(WORK, f) for f in ("rdzv_ranks",
+                                                  "mesh_ranks.pkl"))
+    for f in (rdzv, out):
+        if os.path.exists(f):
+            os.remove(f)
+    cmds = [[sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+             "--mesh-init", f"file://{rdzv}", "--mesh-backend", backend]
+            for r in range(MESH_RANKS)]
+    t0 = time.perf_counter()
+    outs = dryrun.launch(cmds, MESH_TIMEOUT_S, cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT))
+    wall = time.perf_counter() - t0
+    for r, (rc, text) in enumerate(outs):
+        if rc != 0:
+            sys.stderr.write(f"mesh rank {r} exited with {rc}:\n"
+                             f"{text[-3000:]}\n")
+    check(all(rc == 0 for rc, _ in outs),
+          f"mesh ranks exited with {[rc for rc, _ in outs]}")
+    check(os.path.exists(out), "rank 0 wrote no report")
+    with open(out, "rb") as f:
+        res = pickle.load(f)
+    report, fleet = res["dryrun"], res["fleet"]
+    ranks = report["ranks"]
+    check(report["bit_exact"] and res["backend"] == backend
+          and len(ranks) == MESH_RANKS == len(fleet)
+          and report["fibs"] > 0 and report["payloads"] > 0,
+          f"dry run report {report}")
+    for r in ranks:
+        check(r["launches"] == launched(viterbi_decode_fused=2),
+              f"rank {r['rank']} launched {r['launches']} in the dry run")
+        check(not r["loaded_jax"], f"rank {r['rank']} loaded {r['loaded_jax']}")
+    nb_rounds = (NB_FRAMES - 1) // FLEET_K
+    leaders = [p for p in fleet if p["aus"] is not None]
+    check([p["rank"] for p in leaders] == [0], f"leaders {leaders}")
+    nb_aus = _check_fleet_aus(leaders[0]["aus"], sents, "mesh ranks' fleet")
+    for p in fleet:
+        check(p["launches"] == launched(viterbi_decode_fused=nb_rounds),
+              f"rank {p['rank']} launched {p['launches']} in the fleet")
+        check(p["health"] == fleet[0]["health"] and p["health"][2] == nb_rounds
+              and min(p["health"][1]) > 0,
+              f"rank {p['rank']}'s health {p['health']} is not rank 0's "
+              f"{fleet[0]['health']}")
+    log(f"mesh {MESH_RANKS} ranks ({backend}, devices "
+        f"{sorted({p['device'] for p in fleet})}), wall of the launch "
+        f"{wall:.2f} s. Dry run: mesh {report['mesh']} subchannels "
+        f"{report['subchannels']} frames {report['frames']}: "
+        f"{report['fibs']} FIBs and {report['payloads']} payloads bit-exact "
+        f"against FICDecoder / MSCDecoder. FusedFleet on the mesh: "
+        f"{FLEET_STREAMS} streams x {FLEET_K} frames a round, {nb_rounds} "
+        f"rounds, {nb_aus} access units byte-exact, every rank's health "
+        f"equal (fib_ok {fleet[0]['health'][1]})")
+    for r, p in zip(ranks, fleet):
+        log(f"  rank {r['rank']} {r['coords']}: dry run K1 {r['launches']}, "
+            f"step {r['step_ms']} ms between events, wall {r['wall_s']:.4f} "
+            f"s, collectives {json.dumps(r['collectives'])}; fleet K1 "
+            f"{p['launches']}, round walls "
+            f"{json.dumps([round(x, 4) for x in p['round_wall_s']])} s, "
+            f"collectives {json.dumps(p['collectives'])}")
+    return fleet[0]["launches"]
+
+
+def mesh_path(dev, paths, sents):
+    """The multi-GPU receiver on the one card: see the module docstring.
+    Returns the launch counts of rank 0's fleet."""
+    mesh_world1(dev, paths, sents)
+    return mesh_ranks(sents)
+
+
 def _device_profile(tp, wall_s):
     """(device time ms, busy share of wall_s, top 12 kernels) of a finished
     torch.profiler run."""
@@ -1172,7 +1442,16 @@ def main():
                     help="time the main path instead of checking it")
     ap.add_argument("--frames", type=int, default=50,
                     help="frames of the --measure capture")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="run the captures and the mesh ranks alone (with "
+                         "--mesh-backend nccl: one card a rank)")
+    ap.add_argument("--mesh-backend", default="gloo", choices=["gloo", "nccl"])
+    ap.add_argument("--mesh-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-init", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.mesh_rank is not None:
+        return mesh_rank(args.mesh_rank, args.mesh_init, args.mesh_backend)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1184,6 +1463,10 @@ def main():
     build_kernels()
     if args.measure:
         measure(dev, args.frames)
+        return 0
+    if args.mesh_only:
+        _, sents = make_captures(dev)
+        mesh_ranks(sents, args.mesh_backend)
         return 0
     phases = []
 
@@ -1207,7 +1490,8 @@ def main():
                 "discovery": phase("discovery", discovery_path, dev, paths,
                                    sents),
                 "variants": phase("variants", variants_path, dev, paths),
-                "batched": phase("batched", batched_path, dev, paths, sents)}
+                "batched": phase("batched", batched_path, dev, paths, sents),
+                "mesh": phase("mesh", mesh_path, dev, paths, sents)}
     log("phases: " + ", ".join(f"{n} {t:.2f} s" for n, t in phases))
     from dab_radio_tpu_torch.host.native import native_status
     log("host native libraries: " + ", ".join(

@@ -4,10 +4,14 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own by ``nvcc`` for Hopper (``sm_90a``) into ``build/torch_kernels/`` at the
 root of the checkout, then loaded with ``ctypes``. A library is rebuilt when
 it is missing or older than its source. ``build_all`` starts one ``nvcc``
-per source at once and waits for all of them.
+per source at once and waits for all of them, holding an exclusive
+``flock`` on ``build/torch_kernels/lock``: processes that start together
+(the ranks of a mesh) build once, and the others load what it built. The
+lock is released when its process ends, however it ends.
 """
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -47,6 +51,12 @@ def build_all(names=None) -> dict:
     if names is None:
         names = sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build(names)
+
+
+def _build(names) -> dict:
     procs = {}
     t0 = time.perf_counter()
     for name in names:

@@ -19,6 +19,21 @@ read grid by it (sample-clock drift re-anchor), watch ``last_fib_ok`` for
 sustained zeros and then ``resync()`` + ``find_alignment`` (hard desync
 recovery), and ``snapshot()`` / ``from_snapshot()`` to checkpoint or
 migrate. ``apps/fleet_serve.py`` implements all three loops.
+
+With ``mesh=`` (a ``parallel.mesh.ReceiverMesh``, one process a rank) the
+round is ``multichip_receiver_step``: each rank serves the streams of its
+'ens' coordinate (``rows``), demodulates its frame block of the round
+('time': a round is time * frames_per_step frames) and decodes its
+subchannels ('sub'). The packed subchannel bytes of the 'sub' ranks are
+gathered to the ens group's leader (time 0, sub 0), which alone runs the
+byte layer of its streams: its receivers, observers and ``summary()`` are
+those of its streams, and observers get global stream numbers. The health
+signals are every rank's: each holds its group's FIBs (it decodes the FIC)
+and the offsets of all its frames (gathered over 'time'), so
+``drift_correction``, ``last_fib_ok`` and ``materialized_rounds`` read the
+same on every rank of a group, and a serving loop on any rank may move its
+read grid by them. Every rank calls ``process_round`` each round with the
+whole round of all N streams.
 """
 
 from typing import Callable, List, Optional
@@ -85,9 +100,10 @@ class FusedFleet:
                  subchannel_kinds=None, viterbi: str = "exact",
                  chainback: str = "sequential",
                  viterbi_branch: str = "matmul", fuse_fic: bool = True,
-                 consume_workers: int = 0):
-        from ..parallel.mesh import receiver_step
-        self.N = nb_streams
+                 consume_workers: int = 0, mesh=None):
+        from ..parallel.mesh import multichip_receiver_step, receiver_step
+        self.nb_streams = nb_streams
+        self.mesh = mesh
         self.device = torch.device(device)
         self._cfgs_arg = subchannel_cfgs
         self._block_tracking = block_tracking
@@ -116,14 +132,32 @@ class FusedFleet:
         self._mode = transmission_mode
         self.dab = get_dab_params(transmission_mode)
         self.fs = get_ofdm_params(transmission_mode).nb_frame_samples
-        self.frames_per_round = frames_per_step
-        self.step, (self._carry, self._hist, _) = receiver_step(
-            self.device, transmission_mode, frames_per_shard=frames_per_step,
-            subchannels_per_shard=self.S, ensembles_per_shard=self.N,
-            ingest="u8", subchannel_cfgs=subchannel_cfgs,
-            block_tracking=block_tracking, viterbi=viterbi,
-            chainback=chainback, viterbi_branch=viterbi_branch,
-            fuse_fic=fuse_fic)
+        args = dict(frames_per_shard=frames_per_step, ingest="u8",
+                    subchannel_cfgs=subchannel_cfgs,
+                    block_tracking=block_tracking, viterbi=viterbi,
+                    chainback=chainback, viterbi_branch=viterbi_branch,
+                    fuse_fic=fuse_fic)
+        if mesh is None:
+            self.frames_per_round = frames_per_step
+            self.step, (self._carry, self._hist, _) = receiver_step(
+                self.device, transmission_mode, subchannels_per_shard=self.S,
+                ensembles_per_shard=nb_streams, **args)
+        else:
+            if nb_streams % mesh.shape["ens"] or self.S % mesh.shape["sub"]:
+                raise ValueError(
+                    f"{nb_streams} streams and {self.S} subchannels do not "
+                    f"split over the mesh {mesh.shape}")
+            # each round takes frames_per_step frames a time shard
+            self.frames_per_round = mesh.shape["time"] * frames_per_step
+            self.step, (self._carry, self._hist, _) = multichip_receiver_step(
+                mesh, transmission_mode,
+                subchannels_per_shard=self.S // mesh.shape["sub"],
+                ensembles_per_shard=nb_streams // mesh.shape["ens"],
+                device=self.device, **args)
+        # the global stream rows this fleet serves: all of them, or on a
+        # mesh those of this rank's ens coordinate
+        self.rows = (0, nb_streams) if mesh is None else self.step.rows
+        self.N = self.rows[1] - self.rows[0]
         # per-(stream, sub) byte-layer kind: "audio" (DAB+ superframes),
         # "mp2" (classic DAB: each logical frame IS one MP2 frame, fired
         # via on_mp2_frame + optional PCM decode), or ("packet",
@@ -141,7 +175,8 @@ class FusedFleet:
                 isinstance(subchannel_kinds[0], (list, tuple)) and not (
                     len(subchannel_kinds[0]) and
                     subchannel_kinds[0][0] == "packet"):
-            self._kinds = [kind_row(r) for r in subchannel_kinds]
+            self._kinds = [kind_row(r) for r in
+                           subchannel_kinds[self.rows[0]:self.rows[1]]]
         else:
             self._kinds = [kind_row(subchannel_kinds)] * self.N
         self.receivers = [DabReceiver(transmission_mode, device=self.device)
@@ -161,7 +196,7 @@ class FusedFleet:
         nbl = self.step.msc_nb_data_bits
         self._nbytes = [[n // 8 for n in
                          (nbl[b] if self.step.per_stream else nbl)]
-                        for b in range(self.N)]
+                        for b in range(*self.rows)]
         self._pending: Optional[_Fetch] = None
         self._pinned = [None, None]    # the fetches' host tensors, in turns
         self._init_state = (self._carry, self._hist)
@@ -222,14 +257,19 @@ class FusedFleet:
         and the counters. A deferred round is consumed first. The device,
         observers (on_access_unit etc.) and codec handles are NOT
         captured: from_snapshot takes the target device, and sinks and
-        audio re-attach after."""
+        audio re-attach after.
+
+        On a mesh every rank calls it, and rank 0 gets the snapshot of the
+        whole fleet (None on the others): the device state in the layout
+        of the whole mesh, carry fields (N, n_time) and history (N, S, 16,
+        nb_sub_bits), and the byte layer of every ens group's leader."""
         import pickle
         self.flush()
         carry, hist = self.state()
         # processor callback lists (the packet relays are closures) are
         # excluded by PacketProcessor/MOTProcessor.__getstate__
-        return pickle.dumps({
-            "mode": self._mode, "N": self.N, "K": self.K,
+        blob = {
+            "mode": self._mode, "N": self.nb_streams, "K": self.K,
             "cfgs": self._cfgs_arg, "kinds": self._kinds,
             "block_tracking": self._block_tracking,
             "viterbi": self._viterbi,
@@ -244,14 +284,45 @@ class FusedFleet:
             # same drift/desync signals an uninterrupted one would
             "health": (self.last_frame_offsets, self.last_fib_ok,
                        self.materialized_rounds),
-        })
+        }
+        if self.mesh is not None:
+            blob = self._gather_snapshot(blob)
+        return None if blob is None else pickle.dumps(blob)
+
+    def _gather_snapshot(self, mine: dict):
+        """A mesh fleet's snapshot dict with the whole fleet's state, on
+        rank 0; None on the other ranks."""
+        from ..parallel.mesh import _gather_objects, gather_round
+        state = gather_round(self.mesh, self._carry, self._hist, {})
+        keys = ("kinds", "receivers", "sfp", "counters", "health")
+        parts = _gather_objects(self.mesh, {k: mine[k] for k in keys}
+                                if self.mesh.is_leader else None, 0)
+        if state is None:
+            return None
+        leaders = [p for p in parts if p is not None]      # in ens order
+        counts = np.array([p["counters"] for p in leaders])
+        health = [p["health"] for p in leaders]
+        return dict(
+            mine, carry=list(state[0]), hist=state[1],
+            kinds=[row for p in leaders for row in p["kinds"]],
+            receivers=[rx for p in leaders for rx in p["receivers"]],
+            sfp=[row for p in leaders for row in p["sfp"]],
+            counters=(int(counts[0, 0]),
+                      *(int(x) for x in counts[:, 1:].sum(axis=0))),
+            health=(np.concatenate([h[0] for h in health]),
+                    np.concatenate([h[1] for h in health]), health[0][2]))
 
     @classmethod
-    def from_snapshot(cls, blob: bytes, device,
+    def from_snapshot(cls, blob: bytes, device, mesh=None,
                       consume_workers: int = 0) -> "FusedFleet":
         """Rebuild a serving fleet from snapshot() on `device` (the device
-        is not part of the snapshot). The resumed decode is byte-identical
-        to an uninterrupted run."""
+        is not part of the snapshot), on one device or, with `mesh`, on
+        every rank of it. The resumed decode is byte-identical to an
+        uninterrupted run. The mesh's 'time' factor must be that of the
+        fleet the snapshot was taken from (each time shard keeps its own
+        carry); the 'ens' and 'sub' factors may differ. On a mesh the
+        counters of access units, data groups and MP2 frames go to rank 0's
+        streams, so that the leaders' summaries add up to the snapshot's."""
         import pickle
         d = pickle.loads(blob)
         fleet = cls(d["N"], d["cfgs"], transmission_mode=d["mode"],
@@ -260,22 +331,39 @@ class FusedFleet:
                     subchannel_kinds=d["kinds"], viterbi=d["viterbi"],
                     chainback=d["chainback"],
                     viterbi_branch=d["viterbi_branch"],
-                    fuse_fic=d["fuse_fic"], consume_workers=consume_workers)
-        fleet.load_state(d["carry"], d["hist"])
-        fleet.receivers = d["receivers"]
+                    fuse_fic=d["fuse_fic"], consume_workers=consume_workers,
+                    mesh=mesh)
+        n_time = 1 if mesh is None else mesh.shape["time"]
+        want = [(fleet.nb_streams, n_time)] * len(fleet._carry) + [
+            (fleet.nb_streams, fleet.S) + tuple(fleet._hist.shape[2:])]
+        got = [np.asarray(x).shape for x in (*d["carry"], d["hist"])]
+        if got != want:
+            raise ValueError(
+                "the snapshot is incompatible with the target mesh: it was "
+                "taken with a different 'time' axis size or round shape; "
+                f"restore it on a mesh with the same time factor: {want} vs "
+                f"{got}")
+        (lo, hi), (s0, s1) = fleet.rows, fleet.step.subs
+        t = 0 if mesh is None else mesh.coords["time"]
+        fleet.load_state([np.asarray(c)[lo:hi, t:t + 1] for c in d["carry"]],
+                         np.asarray(d["hist"])[lo:hi, s0:s1])
+        fleet.receivers = d["receivers"][lo:hi]
         for rx in fleet.receivers:     # pickled with the device it ran on
             rx.device = fleet.device
-        fleet._sfp = d["sfp"]
+        fleet._sfp = d["sfp"][lo:hi]
         for row in fleet._sfp:
             for p in row:
                 # observer lists are stripped by __getstate__; restore the
                 # empty list the collector in _stream_job appends to
                 if p is not None and hasattr(p, "on_data_group"):
                     p.on_data_group = []
-        (fleet.total_rounds, fleet.total_aus,
-         fleet.total_data_groups, fleet.total_mp2_frames) = d["counters"]
-        (fleet.last_frame_offsets, fleet.last_fib_ok,
-         fleet.materialized_rounds) = d["health"]
+        fleet.total_rounds = d["counters"][0]
+        if mesh is None or mesh.rank == 0:
+            (fleet.total_aus, fleet.total_data_groups,
+             fleet.total_mp2_frames) = d["counters"][1:]
+        offsets, fib_ok, fleet.materialized_rounds = d["health"]
+        fleet.last_frame_offsets = offsets[lo:hi]
+        fleet.last_fib_ok = fib_ok[lo:hi]
         return fleet
 
     def reset(self):
@@ -399,12 +487,21 @@ class FusedFleet:
         positive (omit only at end of stream). With defer_fetch, the
         previous round's byte layer is consumed while this round runs on
         the device (one round of latency: on a CUDA device the round is
-        only queued here, and its outputs are fetched behind an event)."""
+        only queued here, and its outputs are fetched behind an event).
+
+        On a mesh every rank calls process_round each round, with the
+        whole round of all N streams as above; the rank takes its rows and,
+        of iq_u8, its time block."""
+        if self.mesh is not None:
+            iq_u8, tail_u8 = self._local(iq_u8), self._local(tail_u8, False)
         self._carry, self._hist, out = self.step(
             self._carry, self._hist, iq_u8, tail_u8)
         # the bit packing stays on the device: 8x fewer bytes to fetch
-        packed = (_pack_bits(out["fib_bits"]), _pack_bits(out["msc_bits"]),
-                  out["offsets"][:, -1])
+        packed = (_pack_bits(out["fib_bits"]), out["offsets"][:, -1])
+        if self.mesh is None:
+            packed += (_pack_bits(out["msc_bits"]),)
+        else:
+            packed += self._to_leader(out["msc_bits"])
         fetch = _Fetch(packed, self._pinned_for(packed))
         if defer_fetch:
             prev, self._pending = self._pending, fetch
@@ -413,6 +510,33 @@ class FusedFleet:
         else:
             self._materialize(fetch)
         self.total_rounds += 1
+
+    def _local(self, x, block: bool = True):
+        """This rank's part of a round's input of all N streams: its
+        streams' rows, and with block the columns of its time coordinate."""
+        if x is None:
+            return None
+        if x.shape[0] != self.nb_streams:
+            raise ValueError(f"a round on a mesh holds all {self.nb_streams} "
+                             f"streams, got {x.shape[0]} rows")
+        x = x[self.rows[0]:self.rows[1]]
+        if block:
+            n = x.shape[1] // self.mesh.shape["time"]
+            t = self.mesh.coords["time"]
+            x = x[:, t * n:(t + 1) * n]
+        return x
+
+    def _to_leader(self, msc_bits):
+        """(the packed subchannel bytes of every sub rank,) on the leader,
+        gathered over 'sub' among the time-0 ranks; () on the others."""
+        from ..parallel.mesh import _all_gather
+        if self.mesh.coords["time"] != 0:
+            return ()
+        msc = _all_gather(self.mesh, "sub", _pack_bits(msc_bits))
+        if not self.mesh.is_leader:
+            return ()
+        # (n_sub, N, S_loc, C, n) -> (N, S, C, n)
+        return (msc.transpose(0, 1).reshape(self.N, self.S, *msc.shape[3:]),)
 
     def _pinned_for(self, packed):
         """This round's pinned host tensors (CUDA only): two sets used in
@@ -426,9 +550,12 @@ class FusedFleet:
         return self._pinned[k]
 
     def _materialize(self, fetch: _Fetch):
-        fib, msc, offs = fetch.arrays()
+        fib, offs, *msc = fetch.arrays()
         self.last_frame_offsets = offs.astype(np.int64)
-        self._consume(fib, msc)
+        if msc:
+            self._consume(fib, msc[0])
+        else:          # a rank of a mesh other than its group's leader
+            self._check_fibs(fib)
         self.materialized_rounds += 1
 
     @property
@@ -470,15 +597,19 @@ class FusedFleet:
 
     # ---- host byte layer -------------------------------------------------
 
-    def _consume(self, fib_bytes: np.ndarray, msc_bytes: np.ndarray):
-        B, F, G, nbytes = fib_bytes.shape
+    def _check_fibs(self, fib_bytes: np.ndarray):
+        """(the round's FIBs (N, F, FIBs, 32), their CRC flags)."""
+        B, F = fib_bytes.shape[:2]
         fibs = fib_bytes.reshape(B, F, -1, 32)
-        ok = crc16_check_batch(fibs.reshape(-1, 32)) \
-            .reshape(B, F, fibs.shape[2])
+        ok = crc16_check_batch(fibs.reshape(-1, 32)).reshape(fibs.shape[:3])
         # per-stream signal-health metric for the serving loop's desync
         # detector: valid FIBs in this round (a locked stream passes
         # nearly all; a desynced/retuned one passes none)
         self.last_fib_ok = ok.reshape(B, -1).sum(axis=1)
+        return fibs, ok
+
+    def _consume(self, fib_bytes: np.ndarray, msc_bytes: np.ndarray):
+        fibs, ok = self._check_fibs(fib_bytes)
         if self._pool is None:
             for b, events in enumerate(
                     self._consume_batched(fibs, ok, msc_bytes)):
@@ -605,7 +736,9 @@ class FusedFleet:
 
     def _fire(self, b, events):
         """Replay one stream's collected events through the observers and
-        counters, on the calling thread, in decode order."""
+        counters, on the calling thread, in decode order. Observers get the
+        global stream number."""
+        b += self.rows[0]
         for ev in events:
             if ev[0] == "sf":
                 _, s, header, aus, pcm = ev
@@ -636,8 +769,8 @@ class FusedFleet:
         DAB+ AUs through HE-AAC (incl. SBR@960 and parametric stereo) or,
         for an 'mp2' subchannel, classic DAB MP2 frames (host/codecs.py).
         Off by default: serving deployments usually ship the bitstream
-        downstream."""
-        self._audio_enabled.add((stream, sub))
+        downstream. `stream` is the global stream number."""
+        self._audio_enabled.add((stream - self.rows[0], sub))
 
     def _decode_mp2(self, b, s, frame: bytes):
         """-> [(pcm, rate, nch), ...] for _fire (no observer calls here:

@@ -1,6 +1,5 @@
-"""The fused receiver round on one device (port of
-``dab_radio_tpu/parallel/mesh.py``: ``make_timesharded_demod`` and
-``multichip_receiver_step``, with every mesh axis of size 1).
+"""The fused receiver round, on one device or over a mesh of GPU ranks
+(port of ``dab_radio_tpu/parallel/mesh.py``).
 
 One call of the step takes ``frames_per_shard`` frames of raw IQ for each of
 B streams and returns their decoded, descrambled FIB and subchannel bits:
@@ -14,18 +13,35 @@ B streams and returns their decoded, descrambled FIB and subchannel bits:
 It is plain functions on tensors of the step's device; only the Viterbi
 decode is a hand-written kernel (``kernels/viterbi_acs.py``), and only with
 the default ``chainback`` and ``viterbi_branch``: the other decode variants
-are torch loops over the trellis (``ops/viterbi.py``). The mesh
-version over several GPUs (``multichip_receiver_step``, the 'ens', 'time'
-and 'sub' axes) is not ported yet.
+are torch loops over the trellis (``ops/viterbi.py``).
+
+``receiver_step`` is the round on one device. ``multichip_receiver_step``
+is the same round over a ``ReceiverMesh``: one process a GPU rank, the
+mesh's three axes as ``torch.distributed`` process groups, NCCL between
+cards and gloo on the CPU (or between ranks that share one card):
+
+  'ens'  - streams, data parallel: a rank holds its ens coordinate's rows;
+  'time' - frame blocks of one stream, sequence parallel: each rank
+           demodulates its block with the first samples of its right
+           neighbour's block as the halo, then the frames are gathered;
+  'sub'  - subchannels: each rank decodes its S / n_sub of them.
+
+Both run one body: ``receiver_step`` is ``multichip_receiver_step``
+without a mesh, and the mesh adds the collectives around the round.
 """
+
+import time
+from contextlib import contextmanager
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..models.demodulator import OFDMDemodulator, DemodCarry
+from ..models.demodulator import OFDMDemodulator, DemodCarry, _select
 from ..utils.backend import to_device
 
 STOP_AFTER = (None, "ingest", "demod", "subs", "deint", "depunct", "acs")
+AXES = ("ens", "time", "sub")
 
 
 def _u8_to_complex(u8: torch.Tensor) -> torch.Tensor:
@@ -41,8 +57,173 @@ def _pairs_to_complex(x: torch.Tensor) -> torch.Tensor:
     return torch.view_as_complex(x.to(torch.float32).contiguous())
 
 
+# ---- the mesh -------------------------------------------------------------
+
+def mesh_axis_sizes(n: int) -> tuple:
+    """The factoring of n ranks into ('ens', 'time', 'sub'): 'sub' and
+    'time' each take one factor of 2 when there is one, the rest goes to
+    'ens'. 8 -> (2, 2, 2), 16 -> (4, 2, 2), 4 -> (1, 2, 2), 2 -> (1, 1, 2),
+    odd n -> (n, 1, 1)."""
+    if n <= 0:
+        raise ValueError(f"a mesh needs at least one rank, got {n}")
+    sub = 2 if n % 2 == 0 else 1
+    time_ = 2 if (n // sub) % 2 == 0 else 1
+    return (n // (sub * time_), time_, sub)
+
+
+class ReceiverMesh:
+    """This rank's place in the ('ens', 'time', 'sub') mesh.
+
+    ``shape`` maps each axis to its size, ``coords`` to this rank's
+    coordinate; rank r sits at the row-major position r of the axis sizes,
+    so that rank r holds the rows that shard r of a JAX mesh of the same
+    sizes holds. ``groups`` maps each axis to the process group of the line
+    through this rank along it, or is None for the one-rank mesh without a
+    process group, on which every collective is the identity."""
+
+    def __init__(self, axis_sizes, rank: int = 0, groups=None):
+        self.axis_sizes = tuple(int(a) for a in axis_sizes)
+        self.shape = dict(zip(AXES, self.axis_sizes))
+        self.size = int(np.prod(self.axis_sizes))
+        self.rank = rank
+        self.coords = dict(zip(AXES, (int(c) for c in np.unravel_index(
+            rank, self.axis_sizes))))
+        self.groups = groups
+
+    def group(self, axis: str):
+        return None if self.groups is None else self.groups[axis]
+
+    @property
+    def is_leader(self) -> bool:
+        """Whether this rank is its ens group's first (time 0, sub 0)."""
+        return self.coords["time"] == 0 and self.coords["sub"] == 0
+
+    def __repr__(self):
+        return (f"ReceiverMesh({self.shape}, rank={self.rank}, "
+                f"coords={self.coords})")
+
+
+def make_receiver_mesh(n: int = None, axis_sizes=None) -> ReceiverMesh:
+    """The mesh of this process group's n ranks (default: all of them; 1
+    when no process group is up). axis_sizes overrides the factoring of
+    ``mesh_axis_sizes``. Every rank must call it, with the same arguments
+    and in the same order as the other ranks: it makes one process group
+    for each line of each axis."""
+    up = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if up else 1
+    n = world if n is None else n
+    if n != world:
+        raise ValueError(f"a mesh of {n} ranks needs a process group of {n} "
+                         f"ranks, this process is in one of {world}")
+    if axis_sizes is None:
+        axis_sizes = mesh_axis_sizes(n)
+    if int(np.prod(axis_sizes)) != n or len(axis_sizes) != 3:
+        raise ValueError(f"axis sizes {tuple(axis_sizes)} do not factor {n}")
+    if not up:
+        return ReceiverMesh(axis_sizes)
+    rank = dist.get_rank()
+    ranks = np.arange(n).reshape(axis_sizes)
+    groups = {}
+    for i, axis in enumerate(AXES):
+        for line in np.moveaxis(ranks, i, -1).reshape(-1, axis_sizes[i]):
+            line = [int(r) for r in line]
+            group = dist.new_group(line)
+            if rank in line:
+                groups[axis] = group
+    return ReceiverMesh(axis_sizes, rank, groups)
+
+
+# ---- collectives over one axis of the mesh ----------------------------------
+
+# calls, wall seconds (on the host) and host copies of the collectives of
+# this process; gloo moves CPU tensors only, so a CUDA tensor goes through
+# host memory, one copy each way
+COLLECTIVES = {"calls": 0, "seconds": 0.0, "host_copies": 0}
+
+
+def reset_collectives():
+    COLLECTIVES.update(calls=0, seconds=0.0, host_copies=0)
+
+
+@contextmanager
+def _counted():
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        COLLECTIVES["calls"] += 1
+        COLLECTIVES["seconds"] += time.perf_counter() - t0
+
+
+def _to_wire(x: torch.Tensor, group) -> torch.Tensor:
+    """x as the group's backend takes it: under gloo a CUDA tensor is
+    copied to the host."""
+    if x.is_complex():
+        x = torch.view_as_real(x)
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        COLLECTIVES["host_copies"] += 1
+        return x.cpu()
+    return x.contiguous()
+
+
+def _from_wire(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    if x.device != like.device:
+        COLLECTIVES["host_copies"] += 1
+        x = x.to(like.device)
+    return torch.view_as_complex(x) if like.is_complex() else x
+
+
+def _all_gather(mesh: ReceiverMesh, axis: str, x: torch.Tensor):
+    """(n, *x.shape): x of every rank on this rank's line along `axis`, in
+    the order of their coordinates."""
+    group = mesh.group(axis)
+    if group is None:
+        return x[None]
+    with _counted():
+        w = _to_wire(x, group)
+        parts = [torch.empty_like(w) for _ in range(mesh.shape[axis])]
+        dist.all_gather(parts, w, group=group)
+        return _from_wire(torch.stack(parts), x)
+
+
+def _all_reduce(mesh: ReceiverMesh, axis: str, x: torch.Tensor, op):
+    """x reduced by op over this rank's line along `axis` (a new tensor)."""
+    group = mesh.group(axis)
+    if group is None:
+        return x
+    with _counted():
+        w = _to_wire(x, group).clone()
+        dist.all_reduce(w, op, group=group)
+        return _from_wire(w, x)
+
+
+def _halo_from_right(mesh: ReceiverMesh, head: torch.Tensor,
+                     tail: torch.Tensor) -> torch.Tensor:
+    """The samples that follow this rank's block: the head of the right
+    neighbour's block along 'time', or `tail` (what follows the whole
+    block) on the last time rank. Each rank but the first sends its head
+    to its left neighbour."""
+    n, t = mesh.shape["time"], mesh.coords["time"]
+    if n == 1:
+        return tail
+    group = mesh.group("time")
+    with _counted():
+        send = _to_wire(head, group)
+        recv = torch.empty_like(send)
+        ops = []
+        if t > 0:
+            ops.append(dist.P2POp(dist.isend, send,
+                                  dist.get_global_rank(group, t - 1), group))
+        if t < n - 1:
+            ops.append(dist.P2POp(dist.irecv, recv,
+                                  dist.get_global_rank(group, t + 1), group))
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return tail if t == n - 1 else _from_wire(recv, head)
+
+
 def make_timesharded_demod(demod: OFDMDemodulator, frames_per_shard: int,
-                           block_tracking: bool = False):
+                           block_tracking: bool = False, *, mesh=None):
     """Streaming demod of ``frames_per_shard`` frames a call for B streams.
 
     Input iq: (B, T) complex64 with T = frames_per_shard * frame_samples,
@@ -53,11 +234,17 @@ def make_timesharded_demod(demod: OFDMDemodulator, frames_per_shard: int,
     (``None``: end of stream) a positive fine-time offset would make the
     last frame of every block read zeros. Returns fn(carry, iq, tail) ->
     (carry, bits (B, 1, F, nb_frame_bits) int8, offsets (B, 1, F) int32).
-    The carry's fields have leading dims (B, 1), the 1 being the time axis
-    a mesh would shard. The offsets are each frame's measured fine-time
+    The carry's fields have leading dims (B, 1), the 1 being this rank's
+    place on the time axis. The offsets are each frame's measured fine-time
     offset, 0 for a frame that lost sync (a noise burst must not move the
     host's read grid): the serving loop advances its read position by them
     (``FusedFleet.drift_correction``).
+
+    With a mesh whose 'time' axis is n > 1, the stream's block of n * T
+    samples is split over the n time ranks: each passes its own T samples,
+    takes its halo from its right neighbour, and keeps a carry of its own
+    (each time shard tracks its own sync). Only the last time rank reads
+    ``tail``.
 
     block_tracking=True demodulates all frames as ONE batch from the sync
     state at the block's start, and advances the carry once, from the last
@@ -73,6 +260,8 @@ def make_timesharded_demod(demod: OFDMDemodulator, frames_per_shard: int,
         B = iq.shape[0]
         if tail is None:
             tail = torch.zeros((B, halo), dtype=iq.dtype, device=iq.device)
+        if mesh is not None:
+            tail = _halo_from_right(mesh, iq[:, :halo], tail)
         ext = torch.cat([iq, tail], dim=1)
         c = DemodCarry(*[x[:, 0] for x in carry])
         if block_tracking:
@@ -100,6 +289,21 @@ def make_timesharded_demod(demod: OFDMDemodulator, frames_per_shard: int,
     return run
 
 
+def shard_demod_batch(demod: OFDMDemodulator, mesh: ReceiverMesh,
+                      batch: int):
+    """The batched frame step for this rank's rows of a batch split over
+    every rank of the mesh (the flat ('ens', 'time', 'sub') order, rank r
+    owning the r-th of mesh.size equal blocks). Returns (step, (lo, hi)):
+    step(carry, windows) -> (carry, {bits, sync_ok, offset}) for carry
+    fields (hi - lo,) and windows (hi - lo, window_len) complex64, and the
+    global rows [lo, hi) of this rank."""
+    if batch % mesh.size:
+        raise ValueError(f"a batch of {batch} does not split over "
+                         f"{mesh.size} ranks")
+    n = batch // mesh.size
+    return demod.frame_step_batch, (mesh.rank * n, (mesh.rank + 1) * n)
+
+
 def _digest(*xs) -> torch.Tensor:
     """One float32 scalar that depends on every element of every tensor: a
     caller that fetches it has waited for the whole prefix."""
@@ -107,20 +311,29 @@ def _digest(*xs) -> torch.Tensor:
                .to(torch.float32).sum() for x in xs)
 
 
-def receiver_step(device, transmission_mode: int = 2,
-                  frames_per_shard: int = 1,
-                  nb_subchannel_cu: int = 12,
-                  subchannels_per_shard: int = 2,
-                  ensembles_per_shard: int = 2,
-                  ingest: str = "pairs",
-                  subchannel_cfgs=None,
-                  block_tracking: bool = False,
-                  viterbi: str = "exact",
-                  chainback: str = "sequential",
-                  viterbi_branch: str = "matmul",
-                  fuse_fic: bool = False,
-                  stop_after: str = None):
-    """The whole receiver round on `device`: IQ in, decoded bits out.
+def receiver_step(device, *args, **kw):
+    """The whole receiver round on `device`: multichip_receiver_step
+    without a mesh, which takes the same arguments after the device and
+    documents them. Returns (fn, example_args); fn(demod_carry,
+    deint_hist, iq, tail=None) -> (demod_carry, deint_hist, outputs)."""
+    return multichip_receiver_step(None, *args, device=device, **kw)
+
+
+def multichip_receiver_step(mesh, transmission_mode: int = 2,
+                            frames_per_shard: int = 1,
+                            nb_subchannel_cu: int = 12,
+                            subchannels_per_shard: int = 2,
+                            ensembles_per_shard: int = 2,
+                            ingest: str = "pairs",
+                            subchannel_cfgs=None,
+                            block_tracking: bool = False,
+                            viterbi: str = "exact",
+                            chainback: str = "sequential",
+                            viterbi_branch: str = "matmul",
+                            fuse_fic: bool = False,
+                            stop_after: str = None, *, device):
+    """The receiver round, IQ in, decoded bits out: on `device` alone
+    with mesh None (``receiver_step``), else this rank's part of it.
 
     Returns (fn, example_args). fn(demod_carry, deint_hist, iq, tail=None)
     -> (demod_carry, deint_hist, outputs). iq is (B, 2 * T) uint8 for
@@ -172,7 +385,46 @@ def receiver_step(device, transmission_mode: int = 2,
     viterbi_branch="matmul", "exact" and "tiled" run K1 in one launch; every
     other combination, and "radix8", runs the algorithm it names as torch
     operations, far slower on a GPU (root PERF.md). radix8 goes with the
-    sequential or the parallel chainback and with "matmul" only."""
+    sequential or the parallel chainback and with "matmul" only.
+
+    With a ReceiverMesh it is this rank's part of the round over the
+    ('ens', 'time', 'sub') mesh: the same body on `device`, with
+    collectives around it. Every rank of the mesh builds it with the same
+    arguments and calls it once a round; fn(demod_carry, deint_hist, iq,
+    tail=None) -> (demod_carry, deint_hist, outputs) for this rank's shard:
+      iq: the ensembles_per_shard streams of this rank's ens coordinate
+        (global rows fn.rows), frames [t * F_loc, (t + 1) * F_loc) of the
+        round for time coordinate t and F_loc = frames_per_shard, as u8
+        (B_loc, 2 * F_loc * frame_samples) or pairs (B_loc, F_loc *
+        frame_samples, 2); tail, the samples after the whole round, is read
+        by the last time rank alone;
+      demod_carry: fields (B_loc, 1), this time shard's own sync state;
+      deint_hist: (B_loc, S_loc, 16, nb_sub_bits) for the S_loc =
+        S / n_sub subchannels fn.subs of this rank;
+      outputs: fib_bits (B_loc, F, nb_cifs, 768) and offsets (B_loc, F) of
+        all F = n_time * F_loc frames, msc_bits (B_loc, S_loc, F * nb_cifs,
+        nb_data) and the path errors fic_err (B_loc * F * nb_cifs) and
+        msc_err (B_loc * S_loc * C).
+    The widths (nb_sub_bits, the common trellis) are those of all S
+    subchannels, as in the JAX step; fn.subchannel_cfgs and
+    fn.msc_nb_data_bits describe all of them. ``gather_round`` puts the
+    ranks' shards together into the JAX step's global outputs.
+
+    The collectives: the halo of each time block comes from the right
+    neighbour (send/recv in the time group), and after the demod the frames
+    and offsets of the time shards are gathered (all_gather in the time
+    group). Nothing crosses 'ens' or 'sub': each rank slices, deinterleaves,
+    depunctures and decodes its own subchannels' lanes, through K1 in one
+    launch on a CUDA device with the default flags.
+
+    The FIC decodes on every rank of an ens group, with fuse_fic as extra
+    lanes of that rank's one decode: every rank holds the group's frames
+    after the gather, the FIC groups are B_loc * F * nb_cifs lanes beside
+    B_loc * S_loc * C of the MSC (a few per cent at serving widths), and a
+    FIC decode on one sub rank alone would need a broadcast of the FIBs
+    after it and give the ranks' decodes different shapes. The JAX program
+    replicates its FIC decode over 'time' and 'sub' in the same way, and
+    its MSC decode over 'time', as this one does."""
     from ..ops import viterbi as vit
     from ..ops.deinterleave import (make_gather_index,
                                     deinterleave_push_block, DEPTH)
@@ -201,32 +453,43 @@ def receiver_step(device, transmission_mode: int = 2,
     device = torch.device(device)
     demod = OFDMDemodulator(transmission_mode, device=device)
     dab = get_dab_params(transmission_mode)
-    B = ensembles_per_shard
-    F = frames_per_shard
+    sizes = mesh.shape if mesh is not None else dict.fromkeys(AXES, 1)
+    coord = mesh.coords if mesh is not None else dict.fromkeys(AXES, 0)
+    n_ens, n_time, n_sub = (sizes[a] for a in AXES)
+    B = ensembles_per_shard                          # this rank's streams
+    F = n_time * frames_per_shard                    # frames a round
     C = F * dab.nb_cifs                              # CIFs a round
-    demod_fn = make_timesharded_demod(demod, F, block_tracking=block_tracking)
+    demod_fn = make_timesharded_demod(demod, frames_per_shard,
+                                      block_tracking=block_tracking,
+                                      mesh=mesh)
 
     fic_spec = vit.ViterbiSpec.from_schedule(fic_puncture_schedule())
     if subchannel_cfgs is None:
         subchannel_cfgs = [
             SubchannelConfig(s * nb_subchannel_cu, nb_subchannel_cu, False,
                              eep_type="A", eep_prot_level=2)
-            for s in range(subchannels_per_shard)]
+            for s in range(n_sub * subchannels_per_shard)]
     cfgs = list(subchannel_cfgs)
     per_stream = bool(cfgs) and isinstance(cfgs[0], (list, tuple))
     if per_stream:
         grid = [list(row) for row in cfgs]
-        if len(grid) != B or any(len(row) != len(grid[0]) for row in grid):
-            raise ValueError(f"per-stream cfg rows: need {B} rows of one "
-                             f"length, got {[len(row) for row in grid]}")
+        if len(grid) != n_ens * B or any(len(row) != len(grid[0])
+                                         for row in grid):
+            raise ValueError(f"per-stream cfg rows: need {n_ens * B} rows "
+                             f"of one length, got {[len(row) for row in grid]}")
     else:
         grid = [cfgs]
-    S = len(grid[0])
+    if len(grid[0]) % n_sub:
+        raise ValueError(f"{len(grid[0])} subchannels do not split over "
+                         f"{n_sub} sub ranks")
+    S = len(grid[0]) // n_sub                        # this rank's subchannels
     flat = [c for row in grid for c in row]
     if any(c.start_address + c.length > dab.nb_cif_bits // 64 for c in flat):
         raise ValueError("subchannels exceed CIF capacity")
     spec_grid = [[vit.ViterbiSpec.from_schedule(msc_puncture_schedule(c))
                   for c in row] for row in grid]
+    # the padded widths are those of the whole mesh's subchannels, so that
+    # every rank's lanes, history and outputs have one shape
     nb_sub_bits = max(c.nb_cif_bits for c in flat)   # padded common width
     # common trellis length 6 + 24k: the data bits stay a whole number of
     # bytes for the packing on the device (and the step count divides by 2
@@ -237,6 +500,17 @@ def receiver_step(device, transmission_mode: int = 2,
         max_steps = max(max_steps, fic_spec.nb_steps)
     nb_steps = 6 + 24 * ((max_steps - 6 + 23) // 24)
     nb_data = nb_steps - 6
+    nb_data_list = [[sp.nb_data_bits for sp in row] for row in spec_grid]
+    if not per_stream:
+        nb_data_list = nb_data_list[0]
+    # this rank's rows and subchannels of the grid
+    row_range = (coord["ens"] * B, (coord["ens"] + 1) * B)
+    sub_range = (coord["sub"] * S, (coord["sub"] + 1) * S)
+    mine = [row[slice(*sub_range)]
+            for row in (grid[slice(*row_range)] if per_stream else grid)]
+    spec_grid = [row[slice(*sub_range)]
+                 for row in (spec_grid[slice(*row_range)] if per_stream
+                             else spec_grid)]
 
     # padded depuncture plan, leading dims (S,) shared or (B, S) per stream:
     # mask 1 = transmitted symbol (gathered), 0 = punctured (metric-neutral
@@ -247,11 +521,11 @@ def receiver_step(device, transmission_mode: int = 2,
     prbs_np = np.zeros(lead + (nb_data,), np.int8)
     for bi, row in enumerate(spec_grid):
         for si, sp in enumerate(row):
-            at = (bi, si) if per_stream else (si,)
+            idx = (bi, si) if per_stream else (si,)
             n_mother = sp.nb_steps * 4
-            g_np[at][:n_mother] = sp.gather_idx
-            m_np[at][:n_mother] = sp.mask.astype(np.int8)
-            prbs_np[at][:sp.nb_data_bits] = prbs_bits(sp.nb_data_bits)
+            g_np[idx][:n_mother] = sp.gather_idx
+            m_np[idx][:n_mother] = sp.mask.astype(np.int8)
+            prbs_np[idx][:sp.nb_data_bits] = prbs_bits(sp.nb_data_bits)
     if not per_stream:
         g_np, m_np, prbs_np = g_np[None], m_np[None], prbs_np[None]
     # (B or 1, S, 1, n): broadcast over the streams and the C CIFs
@@ -260,9 +534,6 @@ def receiver_step(device, transmission_mode: int = 2,
     fill = torch.as_tensor(np.where(m_np == 0, 0, vit.SOFT_LOW)
                            .astype(np.int8), device=device)[:, :, None, :]
     msc_prbs = torch.as_tensor(prbs_np, device=device)[:, :, None, :]
-    nb_data_list = [[sp.nb_data_bits for sp in row] for row in spec_grid]
-    if not per_stream:
-        nb_data_list = nb_data_list[0]
     fic_prbs = torch.as_tensor(prbs_bits(fic_spec.nb_data_bits)
                                .astype(np.int8), device=device)
     deint_idx = torch.as_tensor(make_gather_index(nb_sub_bits),
@@ -272,8 +543,8 @@ def receiver_step(device, transmission_mode: int = 2,
         # index is clamped into the CIF and what lies past a subchannel's
         # own length is zeroed
         starts = np.array([[c.start_address * 64 for c in row]
-                           for row in grid])                     # (B, S)
-        lens = np.array([[c.nb_cif_bits for c in row] for row in grid])
+                           for row in mine])                     # (B, S)
+        lens = np.array([[c.nb_cif_bits for c in row] for row in mine])
         j = np.arange(nb_sub_bits)
         sub_idx = torch.as_tensor(
             np.minimum(starts[..., None] + j, dab.nb_cif_bits - 1),
@@ -300,6 +571,10 @@ def receiver_step(device, transmission_mode: int = 2,
         carry, bits, offs = demod_fn(carry, iq, tail)
         if stop_after == "demod":
             return carry, deint_hist, {"digest": _digest(bits, offs)}
+        if mesh is not None:
+            # every time shard's frames, in stream order
+            bits = _all_gather(mesh, "time", bits[:, 0]).transpose(0, 1)
+            offs = _all_gather(mesh, "time", offs[:, 0]).transpose(0, 1)
         frames = bits.reshape(B, F, dab.nb_frame_bits)
 
         # ---- FIC ----
@@ -323,7 +598,7 @@ def receiver_step(device, transmission_mode: int = 2,
         else:
             subs = torch.zeros((B, S, C, nb_sub_bits), dtype=torch.int8,
                                device=device)
-            for s, cfg in enumerate(cfgs):
+            for s, cfg in enumerate(mine[0]):
                 lo = cfg.start_address * 64
                 subs[:, s, :, :cfg.nb_cif_bits] = \
                     cifs[:, :, lo:lo + cfg.nb_cif_bits]
@@ -382,7 +657,7 @@ def receiver_step(device, transmission_mode: int = 2,
             "offsets": offs.reshape(B, F),
         }
 
-    T = F * demod.params.nb_frame_samples
+    T = frames_per_shard * demod.params.nb_frame_samples
     if ingest == "u8":
         iq = torch.full((B, 2 * T), 127, dtype=torch.uint8, device=device)
     else:
@@ -399,4 +674,132 @@ def receiver_step(device, transmission_mode: int = 2,
     # the last frame's timing margin reads real data
     step.tail_samples = demod_fn.halo
     step.stop_after = stop_after
+    # the global stream rows and subchannels this rank decodes
+    step.rows, step.subs = row_range, sub_range
     return step, (carry, deint_hist, iq)
+
+
+def _gather_objects(mesh: ReceiverMesh, obj, dst: int):
+    """[obj of every rank] on rank dst, None elsewhere."""
+    if mesh.groups is None:
+        return [obj]
+    parts = [None] * mesh.size if mesh.rank == dst else None
+    with _counted():
+        dist.gather_object(obj, parts, dst=dst)
+    return parts
+
+
+def gather_round(mesh: ReceiverMesh, carry, deint_hist, outputs,
+                 dst: int = 0):
+    """The mesh step's state and outputs of one round put together on rank
+    dst, as numpy, in the global shapes of the JAX step: carry fields
+    (B, n_time), deint_hist (B, S, 16, nb_sub_bits), fib_bits, msc_bits,
+    fic_err, msc_err and offsets over all B streams and S subchannels (the
+    time- and sub-replicated parts taken from time 0 and sub 0). Every rank
+    calls it; it returns None on the others. For tests and checks: the
+    serving path never forms the global copy."""
+    def host(x):
+        return x.detach().cpu().numpy()
+    mine = {"at": tuple(mesh.coords[a] for a in AXES),
+            "carry": [host(x) for x in carry], "hist": host(deint_hist),
+            "out": {k: host(v) for k, v in outputs.items()}}
+    parts = _gather_objects(mesh, mine, dst)
+    if parts is None:
+        return None
+    by = {p["at"]: p for p in parts}
+    n_ens, n_time, n_sub = mesh.axis_sizes
+
+    def along(get, axis, n):
+        """get(e, i) of every e, joined along axis over i < n, then along
+        the rows over e."""
+        return np.concatenate([np.concatenate([get(e, i) for i in range(n)],
+                                              axis=axis)
+                               for e in range(n_ens)])
+    carry = [along(lambda e, t: by[(e, t, 0)]["carry"][k], 1, n_time)
+             for k in range(len(mine["carry"]))]
+    hist = along(lambda e, s: by[(e, 0, s)]["hist"], 1, n_sub)
+    out = {}
+    for k in mine["out"]:
+        if k in ("msc_bits", "msc_err"):
+            def sub_part(e, s, k=k):
+                o = by[(e, 0, s)]["out"]
+                return o[k].reshape(o["msc_bits"].shape[:3] + (-1,))
+            out[k] = along(sub_part, 1, n_sub)
+            if k == "msc_err":
+                out[k] = out[k].reshape(-1)
+        else:
+            out[k] = np.concatenate([by[(e, 0, 0)]["out"][k]
+                                     for e in range(n_ens)])
+    return DemodCarry(*carry), hist, out
+
+
+def make_coldstart_timesharded_demod(demod: OFDMDemodulator,
+                                     mesh: ReceiverMesh,
+                                     frames_per_shard: int):
+    """Sequence-parallel demod that ACQUIRES from a cold carry.
+
+    Input iq: this rank's (B, frames_per_shard * frame_samples) complex64
+    block of a stream split over the mesh's time ranks, at an arbitrary
+    frame phase. Each time rank runs the null-dip search over its block,
+    against the mean signal level of all blocks (a sum over 'time', then a
+    divide); the earliest detection of all blocks is elected (a MIN over
+    'time'), and every rank then demodulates the frames that start inside
+    its block at that phase, from a halo of window_len samples from its
+    right neighbour (the last rank reads `tail`, the samples after the
+    whole stream block). Returns fn(iq, tail=None) -> (carry (B, 1),
+    bits (B, 1, frames_per_shard, nb_frame_bits), valid (B, 1,
+    frames_per_shard)); valid is False for frames before the detection,
+    after a desync and on blocks with no signal."""
+    p = demod.params
+    fs = p.nb_frame_samples
+    f_loc = frames_per_shard
+    T_loc = f_loc * fs
+    halo = demod.window_len
+    rewind = 2 * demod.cfg.null_search_nb_samples
+    big = 2 ** 30
+    base = mesh.coords["time"] * T_loc
+
+    def run(iq, tail=None):
+        iq = demod._as_iq(iq)
+        B = iq.shape[0]
+        if tail is None:
+            tail = torch.zeros((B, halo), dtype=iq.dtype, device=iq.device)
+        ext = torch.cat([iq, _halo_from_right(mesh, iq[:, :halo],
+                                              demod._as_iq(tail))], dim=1)
+        # the mean level of all blocks: a sum, then a divide (gloo has no AVG)
+        l1 = _all_reduce(mesh, "time", demod.l1(iq),
+                         dist.ReduceOp.SUM) / mesh.shape["time"]
+        found, end_idx = demod.acquire(iq, l1)
+        cand = torch.where(found, base + end_idx, big).to(torch.int32)
+        global_end = _all_reduce(mesh, "time", cand, dist.ReduceOp.MIN)
+        ok = global_end < big
+        null_start = torch.clamp(global_end - p.nb_null_period - rewind,
+                                 min=0).to(torch.int64)
+        # the first frame start inside this block, at the elected phase
+        local0 = torch.where(null_start >= base, null_start - base,
+                             (fs - (base - null_start) % fs) % fs)
+        in_range = local0 < T_loc          # a block wholly before: none
+        pos = torch.clamp(local0, max=T_loc - 1)
+        carry = DemodCarry.init((B,), device=iq.device)._replace(
+            signal_l1_avg=l1)
+        alive = torch.ones_like(ok)
+        win_ar = torch.arange(demod.window_len, device=iq.device)
+        bits, valid = [], []
+        for _ in range(f_loc):
+            win = torch.gather(ext, 1, pos[:, None] + win_ar)
+            new_c, out = demod._frame_step_impl(carry, win)
+            started = (base + pos) >= null_start
+            okf = out["sync_ok"] & alive & ok & started & in_range
+            carry = _select(started & alive, new_c, carry)
+            pos = torch.where(okf, pos + out["offset"] + fs,
+                              torch.where(started, pos, pos + fs))
+            pos = torch.clamp(pos, 0, T_loc - 1)
+            alive = torch.where(started, okf, alive)
+            bits.append(out["bits"])
+            valid.append(okf)
+        carry = DemodCarry(*[x[:, None] for x in carry])
+        return (carry, torch.stack(bits, dim=1)[:, None],
+                torch.stack(valid, dim=1)[:, None])
+
+    run.halo = halo
+    return run

@@ -7,6 +7,9 @@ This file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +21,10 @@ from dab_radio_tpu_torch.models.demodulator import (OFDMDemodulator,
                                                     StreamingDemodulator)
 from dab_radio_tpu_torch.models.transmitter import (EnsembleTransmitter,
                                                     ServiceSpec)
-from dab_radio_tpu_torch.parallel.mesh import receiver_step
+from dab_radio_tpu_torch.parallel import dryrun
+from dab_radio_tpu_torch.parallel.mesh import (ReceiverMesh,
+                                               multichip_receiver_step,
+                                               receiver_step)
 from dab_radio_tpu_torch.params import SubchannelConfig
 
 pytestmark = pytest.mark.cuda
@@ -381,3 +387,43 @@ def test_feeder_stages_through_pinned_memory(cuda):
         if tail is not None:
             np.testing.assert_array_equal(tail.cpu().numpy(), rtail)
     assert f.stats.rounds == 12 and not f._thread.is_alive()
+
+
+def test_mesh_step_on_cuda_launches_k1_once(cuda):
+    """The mesh step of the one-rank mesh on the card is receiver_step's
+    round: the same outputs, and its decode is one fused K1 launch."""
+    cfgs = [SubchannelConfig(0, 12, False, eep_type="A", eep_prot_level=2),
+            SubchannelConfig(12, 16, True, uep_table_index=0)]
+    kw = dict(subchannels_per_shard=2, ensembles_per_shard=2, ingest="u8",
+              subchannel_cfgs=cfgs, fuse_fic=True)
+    one, (c1, h1, _) = receiver_step(cuda, 2, 2, **kw)
+    many, (c2, h2, _) = multichip_receiver_step(ReceiverMesh((1, 1, 1)), 2,
+                                                2, device=cuda, **kw)
+    rng = np.random.default_rng(6)
+    blk = torch.as_tensor(rng.integers(0, 256, (2, 4 * 49152)), device=cuda
+                          ).to(torch.uint8)
+    K.reset_launches()
+    o2 = many(c2, h2, blk)[2]
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == K.launched(viterbi_decode_fused=1)
+    o1 = one(c1, h1, blk)[2]
+    assert all(torch.equal(o1[k], o2[k]) for k in o1)
+
+
+def test_mesh_dryrun_ranks_share_the_card_over_gloo(cuda, tmp_path):
+    """Two rank processes on the one card, (1, 1, 2) over gloo: the dry run
+    is bit-exact, each rank's decode is K1 (FIC and MSC, two fused
+    launches), and the collectives copy the CUDA tensors through the
+    host."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    init = f"file://{tmp_path}/rdzv"
+    outs = dryrun.launch([dryrun.rank_command(r, 2, init, (1, 1, 2), "cuda",
+                                              "gloo") for r in range(2)],
+                         300, cwd=root, env=dict(os.environ, PYTHONPATH=root))
+    assert [rc for rc, _ in outs] == [0, 0], outs
+    line, = [ln for ln in outs[0][1].splitlines() if ln.startswith("dryrun: ")]
+    report = json.loads(line[len("dryrun: "):])
+    assert report["bit_exact"] and report["backend"] == "gloo"
+    for r in report["ranks"]:
+        assert r["launches"] == K.launched(viterbi_decode_fused=2)
+        assert r["collectives"]["host_copies"] > 0 and not r["loaded_jax"]

@@ -2,11 +2,13 @@
 interpreter, import every module of the package and run its main path
 (transmitter -> u8 file -> radio_cli, then fleet_serve, each also with the
 decode variants, then MultiStreamDemodulator into ReceiverFleet, on the CPU)
-for a few frames, then check sys.modules; and no source file of the port
-imports either."""
+for a few frames, then check sys.modules; the same in every rank of the
+mesh dry run (``parallel/dryrun.py``, two gloo ranks on the CPU); and no
+source file of the port imports either."""
 
 import ast
 import glob
+import json
 import os
 import subprocess
 import sys
@@ -80,6 +82,21 @@ def test_port_never_loads_jax(tmp_path):
     assert "ensemble: id=C0FE" in res.stderr
     assert "demod: frames_read=2 desync=0" in res.stderr
     assert '"ensemble": "C0FE"' in res.stdout and '"rounds": 2' in res.stdout
+
+
+def test_mesh_ranks_never_load_jax(tmp_path):
+    """Each rank of the dry run over (1, 1, 2) lists the modules of jax and
+    of the JAX package in its sys.modules after its round: none."""
+    from dab_radio_tpu_torch.parallel import dryrun
+    init = f"file://{tmp_path}/rdzv"
+    outs = dryrun.launch([dryrun.rank_command(r, 2, init, (1, 1, 2), "cpu",
+                                              frames=17) for r in range(2)],
+                         240, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT))
+    assert [rc for rc, _ in outs] == [0, 0], outs
+    line, = [ln for ln in outs[0][1].splitlines() if ln.startswith("dryrun: ")]
+    report = json.loads(line[len("dryrun: "):])
+    assert report["bit_exact"] and len(report["ranks"]) == 2
+    assert [r["loaded_jax"] for r in report["ranks"]] == [[], []]
 
 
 def _imported_modules(path):
