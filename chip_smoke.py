@@ -62,8 +62,21 @@ It exits non-zero, printing no result, when there is no card. Phases:
    fleet path, every rank fed the whole round: every access unit
    byte-exact, one fused launch a round on every rank, every rank's health
    signals equal; the step's time between CUDA events, the round walls, the
-   collectives' wall time and host copies;
-12. which host native libraries run as shared libraries, a JSON line of the
+   collectives' wall time and host copies; then on a (4, 1, 1) mesh of the
+   same ranks MultiStreamDemodulator(mesh=) into a ReceiverFleet of the
+   rank's stream, over the batched path's 4 captures: the ranks' rows are
+   the 4 streams, every access unit byte-exact, K1 on every rank;
+12. the closed loop through the port's own apps (phase tx): the 18-service
+   ensemble with a dynamic label and a slideshow on each service's X-PAD
+   from simulate_transmitter on the card, apply_frequency_shift, the port's
+   ChannelModel (an echo and AWGN), then radio_app on the card (18 labels,
+   no RS or AU-CRC error, non-silent audio where libavcodec is present) and
+   radio_cli --scraper-enable (18 slideshows byte-equal to those sent,
+   desync 0), every decode one fused K1 launch;
+13. ber_sweep on the card (phase ber): no lock at 2 dB, clean FIC decodes
+   at 14 dB with AWGN, a guard-edge echo and clock drift, each FIC decode
+   one fused K1 launch of 4 x 774;
+14. which host native libraries run as shared libraries, a JSON line of the
    kernels, then the last line {"ok": true, "device": {...}}.
 
 Scratch files go to build/chip_smoke/ in the checkout.
@@ -138,11 +151,25 @@ VARIANT_STREAMS = 2
 VARIANT_K = 4
 BATCHED_STREAMS = 4
 BATCHED_K = 4
+# the tx phase: the main path's ensemble from simulate_transmitter with
+# X-PAD repeated as a carousel (the FIC announces services 12 to 18 in the
+# second frame, after the first round of their X-PAD), shifted, with an
+# echo (delay us, gain dB) and AWGN at SNR_DB; depth cut to 16 frames (the
+# host-side channel model takes about a second a frame)
+TX_FRAMES = 16
+TX_SHIFT_HZ = 1200
+TX_ECHO = (100.0, -6.0)
+# the ber phase: ber_sweep's arguments after -M 1 --cfo 1200 -n 4
+BER_RUNS = [["--snr", "2,14"], ["--snr", "14", "--echo", "240:-3"],
+            ["--snr", "14", "--drift-ppm", "1"]]
 # the mesh dry run: 4 rank processes on the one card, one stream in 2 time
 # blocks of 10 frames, 2 subchannels on 2 sub ranks; each may take this long
 MESH_RANKS = 4
 MESH_AXES = (1, 2, 2)
 MESH_TIMEOUT_S = 300
+# the older batched path on the same 4 ranks: a stream of the batched path a
+# rank, over the 'ens' axis
+BATCHED_MESH_AXES = (4, 1, 1)
 PLAIN_TIMED = ("fic", "msc_group")      # the plain loops take 0.1 to 0.9 s
 # the plain forward pass holds (B, T, 128) branch metrics in float32 and in
 # int32 and a (T, B, 64) int64 product: it is run on this many messages at
@@ -960,35 +987,26 @@ def variants_path(dev, paths):
     return launches
 
 
-def batched_path(dev, paths, sents):
-    """The older batched path: 4 distinct captures through
-    MultiStreamDemodulator (u8 ingest, 4 frames a step, soft bits kept on
-    the card) into ReceiverFleet (pipeline depth 2). Every access unit
-    byte-exact, no desync, and each round one fused launch for the stacked
-    FIC (16 x 774) and one for each protection shape of the MSC (here one:
-    288 x 1542). Returns the launch counts of this path."""
+def _drive_batched(ms, fleet, paths):
+    """Push each capture of `paths` into the stream of its index that `ms`
+    (MultiStreamDemodulator, fetch_bits off) holds, and step until nothing
+    comes, feeding the frames to `fleet` (ReceiverFleet of ms's rows) a
+    frame a receiver a round. Returns ({(global stream, subchannel): [AU
+    bytes]}, demodulator step seconds, process_frames seconds, {T: K1
+    launches} of each round)."""
     import torch
     from dab_radio_tpu_torch.kernels import viterbi_acs as K
-    from dab_radio_tpu_torch.models.demodulator import OFDMDemodulator
-    from dab_radio_tpu_torch.models.fleet import ReceiverFleet
-    from dab_radio_tpu_torch.models.multistream import MultiStreamDemodulator
-    N = BATCHED_STREAMS
-    ms = MultiStreamDemodulator(OFDMDemodulator(1, device=dev), N,
-                                frames_per_step=BATCHED_K, ingest="u8",
-                                fetch_bits=False, device=dev)
-    fleet = ReceiverFleet(N, 1, pipeline_depth=2, device=dev)
+    lo, hi = ms.rows
     got = {}
     for k, rx in enumerate(fleet.receivers):
-        def on_channel(sub_id, ch, _k=k):
-            aus = got.setdefault((_k, sub_id), [])
+        def on_channel(sub_id, ch, _b=lo + k):
+            aus = got.setdefault((_b, sub_id), [])
             ch.events.on_access_unit.append(
                 lambda i, n, au, hdr: aus.append(bytes(au)))
         rx.on_audio_channel.append(on_channel)
-    for k, path in enumerate(paths[:N]):
-        ms.push(k, np.fromfile(path, np.uint8))
-    K.reset_launches()
+    for b in range(lo, hi):
+        ms.push(b, np.fromfile(paths[b], np.uint8))
     step_s, round_s, per_round = [], [], []
-    t_all = time.perf_counter()
     while True:
         t0 = time.perf_counter()
         res = ms.step()
@@ -1001,7 +1019,7 @@ def batched_path(dev, paths, sents):
         while res:         # a step gives up to 4 frames a stream, in order
             seen, now, later = set(), [], []
             for i, b in res:
-                (later if i in seen else now).append((i, b))
+                (later if i in seen else now).append((i - lo, b))
                 seen.add(i)
             before = dict(K.ACS_LAUNCHES_BY_T)
             t0 = time.perf_counter()
@@ -1010,9 +1028,49 @@ def batched_path(dev, paths, sents):
             per_round.append({T: n - before.get(T, 0)
                               for T, n in K.ACS_LAUNCHES_BY_T.items()
                               if n != before.get(T, 0)})
-            res = later
+            res = [(i + lo, b) for i, b in later]
     fleet.flush()
     torch.cuda.synchronize()
+    return got, step_s, round_s, per_round
+
+
+def _check_batched_aus(got, sents, streams):
+    """Every subchannel of each of `streams` has access units, a run of
+    those sent, byte for byte; returns their count."""
+    nb_aus = 0
+    for k in streams:
+        for s in range(NB_SERVICES):
+            aus = got.get((k, 3 + s))
+            sent = sents[k][0xF123 + s]
+            check(aus and aus[0] in sent, f"stream {k} subchannel {3 + s}: "
+                  "no access unit, or an unknown one")
+            at = sent.index(aus[0])
+            check(aus == sent[at:at + len(aus)],
+                  f"stream {k} subchannel {3 + s}: access units differ from "
+                  "those sent")
+            nb_aus += len(aus)
+    return nb_aus
+
+
+def batched_path(dev, paths, sents):
+    """The older batched path: 4 distinct captures through
+    MultiStreamDemodulator (u8 ingest, 4 frames a step, soft bits kept on
+    the card) into ReceiverFleet (pipeline depth 2). Every access unit
+    byte-exact, no desync, and each round one fused launch for the stacked
+    FIC (16 x 774) and one for each protection shape of the MSC (here one:
+    288 x 1542). Returns the launch counts of this path."""
+    from dab_radio_tpu_torch.kernels import viterbi_acs as K
+    from dab_radio_tpu_torch.models.demodulator import OFDMDemodulator
+    from dab_radio_tpu_torch.models.fleet import ReceiverFleet
+    from dab_radio_tpu_torch.models.multistream import MultiStreamDemodulator
+    N = BATCHED_STREAMS
+    ms = MultiStreamDemodulator(OFDMDemodulator(1, device=dev), N,
+                                frames_per_step=BATCHED_K, ingest="u8",
+                                fetch_bits=False, device=dev)
+    fleet = ReceiverFleet(N, 1, pipeline_depth=2, device=dev)
+    K.reset_launches()
+    t_all = time.perf_counter()
+    got, step_s, round_s, per_round = _drive_batched(ms, fleet, paths[:N])
     wall = time.perf_counter() - t_all
     launches = dict(K.LAUNCHES)
     check(int(ms.carry.total_desync.sum()) == 0, "a stream lost sync")
@@ -1025,20 +1083,10 @@ def batched_path(dev, paths, sents):
           and launches == launched(
               viterbi_decode_fused=sum(sum(r.values()) for r in per_round)),
           f"launches by round {per_round}, in all {launches}")
-    nb_aus = 0
     for k in range(N):
         check(len(fleet.receivers[k].channels) == NB_SERVICES,
               f"stream {k}: {len(fleet.receivers[k].channels)} channels")
-        for s in range(NB_SERVICES):
-            aus = got.get((k, 3 + s))
-            sent = sents[k][0xF123 + s]
-            check(aus and aus[0] in sent, f"stream {k} subchannel {3 + s}: "
-                  "no access unit, or an unknown one")
-            at = sent.index(aus[0])
-            check(aus == sent[at:at + len(aus)],
-                  f"stream {k} subchannel {3 + s}: access units differ from "
-                  "those sent")
-            nb_aus += len(aus)
+    nb_aus = _check_batched_aus(got, sents, range(N))
     air = frames * 0.096
     log(f"batched path: streams={N} frames={frames} rounds={len(round_s)} "
         f"access_units={nb_aus} (all byte-exact) desync=0 wall={wall:.3f} s "
@@ -1205,8 +1253,11 @@ def mesh_rank(rank, init, backend):
             fleet.process_round(blk, tail_u8=tail)
             torch.cuda.synchronize(dev)
             walls.append(time.perf_counter() - t0)
+        fleet_launches = dict(K.LAUNCHES)
+        ms_report = _batched_on_mesh(dev, paths)
         report = {"rank": rank, "coords": mesh.coords, "device": str(dev),
-                  "rows": fleet.rows, "launches": dict(K.LAUNCHES),
+                  "rows": fleet.rows, "launches": fleet_launches,
+                  "batched": ms_report,
                   "collectives": dict(M.COLLECTIVES), "round_wall_s": walls,
                   "health": (fleet.drift_correction.tolist(),
                              fleet.last_fib_ok.tolist(),
@@ -1221,6 +1272,32 @@ def mesh_rank(rank, init, backend):
     finally:
         distributed.shutdown()
     return 0
+
+
+def _batched_on_mesh(dev, paths):
+    """On a mesh rank: MultiStreamDemodulator(mesh=) over a
+    BATCHED_MESH_AXES mesh of the same ranks, this rank's stream of the
+    batched path's captures, into a ReceiverFleet of it (as batched_path,
+    4 frames a step, pipeline depth 2). Returns this rank's rows, K1
+    launches, access units, desync count and wall time."""
+    from dab_radio_tpu_torch.kernels import viterbi_acs as K
+    from dab_radio_tpu_torch.models.demodulator import OFDMDemodulator
+    from dab_radio_tpu_torch.models.fleet import ReceiverFleet
+    from dab_radio_tpu_torch.models.multistream import MultiStreamDemodulator
+    from dab_radio_tpu_torch.parallel import mesh as M
+    t0 = time.perf_counter()
+    ms = MultiStreamDemodulator(
+        OFDMDemodulator(1, device=dev), BATCHED_STREAMS,
+        frames_per_step=BATCHED_K, ingest="u8", fetch_bits=False, device=dev,
+        mesh=M.make_receiver_mesh(axis_sizes=BATCHED_MESH_AXES))
+    fleet = ReceiverFleet(ms.B, 1, pipeline_depth=2, device=dev)
+    K.reset_launches()
+    got, _, round_s, _ = _drive_batched(ms, fleet, paths)
+    return {"rows": ms.rows, "launches": dict(K.LAUNCHES),
+            "by_t": dict(K.ACS_LAUNCHES_BY_T), "aus": got,
+            "desync": int(ms.carry.total_desync.sum()),
+            "frames": fleet.total_frames, "rounds": len(round_s),
+            "wall_s": time.perf_counter() - t0}
 
 
 def mesh_ranks(sents, backend="gloo"):
@@ -1273,6 +1350,22 @@ def mesh_ranks(sents, backend="gloo"):
               and min(p["health"][1]) > 0,
               f"rank {p['rank']}'s health {p['health']} is not rank 0's "
               f"{fleet[0]['health']}")
+    # the batched path on the (4, 1, 1) mesh: a stream a rank
+    rows = sorted(p["batched"]["rows"] for p in fleet)
+    check(rows == [(b, b + 1) for b in range(BATCHED_STREAMS)],
+          f"the ranks' rows {rows} are not the {BATCHED_STREAMS} streams")
+    nb_batched = 0
+    for p in fleet:
+        q = p["batched"]
+        check(q["launches"] == launched(
+            viterbi_decode_fused=sum(q["by_t"].values()))
+            and set(q["by_t"]) == {774, 1542},
+              f"rank {p['rank']}'s batched path launched {q['launches']} "
+              f"by T {q['by_t']}")
+        check(q["desync"] == 0 and q["frames"] >= NB_FRAMES - 3,
+              f"rank {p['rank']}'s batched path: desync {q['desync']}, "
+              f"{q['frames']} frames")
+        nb_batched += _check_batched_aus(q["aus"], sents, range(*q["rows"]))
     log(f"mesh {MESH_RANKS} ranks ({backend}, devices "
         f"{sorted({p['device'] for p in fleet})}), wall of the launch "
         f"{wall:.2f} s. Dry run: mesh {report['mesh']} subchannels "
@@ -1282,6 +1375,12 @@ def mesh_ranks(sents, backend="gloo"):
         f"{FLEET_STREAMS} streams x {FLEET_K} frames a round, {nb_rounds} "
         f"rounds, {nb_aus} access units byte-exact, every rank's health "
         f"equal (fib_ok {fleet[0]['health'][1]})")
+    log(f"mesh batched path: MultiStreamDemodulator(mesh={BATCHED_MESH_AXES})"
+        f" into ReceiverFleet, a stream a rank: {nb_batched} access units "
+        "byte-exact, desync 0; rank: rows, K1 by T, frames, wall s = "
+        + json.dumps([(p["batched"]["rows"], p["batched"]["by_t"],
+                       p["batched"]["frames"],
+                       round(p["batched"]["wall_s"], 3)) for p in fleet]))
     for r, p in zip(ranks, fleet):
         log(f"  rank {r['rank']} {r['coords']}: dry run K1 {r['launches']}, "
             f"step {r['step_ms']} ms between events, wall {r['wall_s']:.4f} "
@@ -1297,6 +1396,186 @@ def mesh_path(dev, paths, sents):
     Returns the launch counts of rank 0's fleet."""
     mesh_world1(dev, paths, sents)
     return mesh_ranks(sents)
+
+
+def _run_app(main, argv, stdin_path=None, stdout_path=None):
+    """main(argv) in this process with sys.stdin and sys.stdout on files (a
+    file's bytes go to and come from their .buffer, as in a pipe)."""
+    import io
+    saved = sys.stdin, sys.stdout
+    files = []
+    try:
+        if stdin_path:
+            files.append(open(stdin_path, "rb"))
+            sys.stdin = io.TextIOWrapper(files[-1])
+        if stdout_path:
+            files.append(open(stdout_path, "wb"))
+            sys.stdout = io.TextIOWrapper(files[-1], write_through=True)
+        return main(argv)
+    finally:
+        sys.stdout.flush()
+        sys.stdin, sys.stdout = saved
+        for f in files:
+            f.close()
+
+
+def tx_path(dev):
+    """The closed loop through the port's own apps, at full width: the
+    18-service ensemble with a dynamic label and a slideshow on every
+    service's X-PAD from simulate_transmitter on the card, then
+    apply_frequency_shift, then the port's ChannelModel (an echo and AWGN),
+    then radio_app on the card (18 labels; non-silent audio where
+    libavcodec is present, silence where it is not) and radio_cli
+    --scraper-enable (18 slideshows byte-equal to those sent, desync 0).
+    K1 runs every decode, one fused launch each. Returns the launch counts
+    of the phase."""
+    import wave
+    from dab_radio_tpu_torch.apps import (apply_frequency_shift, radio_app,
+                                          radio_cli)
+    from dab_radio_tpu_torch.apps import simulate_transmitter as st
+    from dab_radio_tpu_torch.host.native import (iq_convert, iq_quantize_u8,
+                                                 native_status)
+    from dab_radio_tpu_torch.kernels import viterbi_acs as K
+    from dab_radio_tpu_torch.models.channel import ChannelModel, EchoTap
+    clean, shifted, cap = (os.path.join(WORK, f"tx_{n}.u8")
+                           for n in ("clean", "shifted", "channel"))
+    wav = os.path.join(WORK, "radio.wav")
+    scrape = os.path.join(WORK, "scrape_tx")
+    shutil.rmtree(scrape, ignore_errors=True)
+    K.reset_launches()
+    walls = {}
+    t0 = time.perf_counter()
+    check(_run_app(st.main, ["--payload", "ensemble", "--services",
+                             str(NB_SERVICES), "--slideshow",
+                             "--pad-carousel", "-n", str(TX_FRAMES), "-F",
+                             "u8", "--backend", "cuda"],
+                   stdout_path=clean) == 0,
+          "simulate_transmitter failed")
+    check(os.path.getsize(clean) == TX_FRAMES * 2 * 196608,
+          f"simulate_transmitter wrote {os.path.getsize(clean)} bytes")
+    walls["simulate_transmitter"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check(_run_app(apply_frequency_shift.main,
+                   ["-f", str(TX_SHIFT_HZ), "--backend", "cuda"],
+                   clean, shifted) == 0, "apply_frequency_shift failed")
+    walls["apply_frequency_shift"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    iq = ChannelModel(taps=[EchoTap(delay_us=TX_ECHO[0], gain_db=TX_ECHO[1])],
+                      snr_db=SNR_DB, seed=SEED).apply(
+        iq_convert(open(shifted, "rb").read(), "u8"))
+    with open(cap, "wb") as f:
+        f.write(iq_quantize_u8((iq / np.abs(iq).max() * 0.5
+                                ).astype(np.complex64)))
+    walls["channel"] = time.perf_counter() - t0
+    launches_tx = dict(K.LAUNCHES)
+
+    t0 = time.perf_counter()
+    rc, err = _run_capturing_stderr(lambda: radio_app.main(
+        ["--device", "file", "-i", cap, "--backend", "cuda", "--audio-out",
+         wav]), echo=False)
+    walls["radio_app"] = time.perf_counter() - t0
+    check(rc == 0, f"radio_app returned {rc}")
+    labels = {ln.strip() for ln in err.splitlines() if "label: " in ln}
+    want = {f"label: Now: Radio TPU {i + 1}" for i in range(NB_SERVICES)}
+    check(labels == want, f"radio_app's labels {sorted(labels)}")
+    final = err[err.rindex("ensemble: id="):]
+    subs = re.findall(r"subchannel \d+: .* rs_err=(\d+) au_err=(\d+)", final)
+    check(len(subs) == NB_SERVICES and all(x == ("0", "0") for x in subs),
+          f"radio_app's channels: {final[:600]!r}")
+    with wave.open(wav, "rb") as w:
+        pcm = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+    rms = float(np.sqrt(np.mean(pcm.astype(np.float64) ** 2))) \
+        if pcm.size else 0.0
+    codecs = native_status()["dabcodecs"]
+    if codecs == "unavailable":
+        # the AAC core decodes through libavcodec (host/codecs.py); without
+        # it no channel decodes PCM, and the mixer writes silence
+        check(rms == 0.0, f"sound without an AAC decoder (RMS {rms:.1f})")
+    else:
+        check(rms > 100, f"radio_app's WAV is silent (RMS {rms:.1f})")
+    by_t_app = dict(K.ACS_LAUNCHES_BY_T)
+
+    t0 = time.perf_counter()
+    rc, err = _run_capturing_stderr(lambda: radio_cli.main(
+        ["-i", cap, "-F", "u8", "--backend", "cuda", "--scraper-enable",
+         "--scraper-output", scrape]), echo=False)
+    walls["radio_cli"] = time.perf_counter() - t0
+    check(rc == 0, f"radio_cli returned {rc}")
+    m = re.search(r"demod: frames_read=(\d+) desync=(\d+)", err)
+    check(m and int(m.group(2)) == 0, "radio_cli lost sync on the capture")
+    for i in range(NB_SERVICES):
+        d = os.path.join(scrape, f"service_{0xF123 + i:X}_component_0")
+        path = os.path.join(d, f"card_{i}.png")
+        check(os.path.exists(path)
+              and open(path, "rb").read() == st._test_card_png(i),
+              f"service {i + 1}: slideshow card_{i}.png missing or altered")
+        check(f"Now: Radio TPU {i + 1}" in open(
+            os.path.join(d, "labels.txt")).read().splitlines(),
+              f"service {i + 1}: no label in the scraper's labels.txt")
+    launches = dict(K.LAUNCHES)
+    by_t = dict(K.ACS_LAUNCHES_BY_T)
+    check(launches_tx == launched(), f"the transmitter ran K1: {launches_tx}")
+    check(set(by_t) == {774, 1542} and set(by_t_app) == {774, 1542}
+          and launches == launched(viterbi_decode_fused=sum(by_t.values())),
+          f"tx phase launches {launches} by T {by_t} (radio_app {by_t_app})")
+    frames = int(m.group(1))
+    log(f"tx path: {NB_SERVICES} services x {TX_FRAMES} frames with X-PAD, "
+        f"shift {TX_SHIFT_HZ} Hz, echo {TX_ECHO[0]} us {TX_ECHO[1]} dB, "
+        f"SNR {SNR_DB} dB; radio_app: {len(labels)} labels, 0 RS/AU "
+        f"errors, WAV {pcm.size} samples RMS {rms:.1f} (dabcodecs {codecs}), "
+        f"real-time factor {frames * 0.096 / walls['radio_app']:.3f}; "
+        f"radio_cli: {NB_SERVICES} slideshows byte-equal, desync 0, "
+        f"{frames} frames; K1 {launches} by T {by_t} (radio_app "
+        f"{by_t_app}); walls s = "
+        + json.dumps({k: round(v, 3) for k, v in walls.items()}))
+    return launches
+
+
+def ber_path(dev):
+    """ber_sweep on the card, mode I, 4 frames, CFO 1200 Hz: SNR 2 and
+    14 dB, then 14 dB with a guard-edge echo and with 1 ppm of clock
+    drift. No lock at 2 dB; at 14 dB at least 3 locked frames, every FIC
+    group decoded without a byte error and every FIB's CRC good, and a raw
+    BER under 1e-2 where the channel is flat (the guard-edge echo's
+    frequency-selective fading leaves about 2e-2 for the Viterbi decoder to
+    correct). Each FIC decode is one fused K1 launch of 4 x 774. Returns the
+    launch counts of the phase."""
+    import io
+    from dab_radio_tpu_torch.apps import ber_sweep
+    from dab_radio_tpu_torch.kernels import viterbi_acs as K
+    K.reset_launches()
+    rows = []
+    for extra in BER_RUNS:
+        out, saved = io.StringIO(), sys.stdout
+        sys.stdout = out
+        try:
+            rc = ber_sweep.main(["-M", "1", "--cfo", "1200", "-n", "4",
+                                 "--backend", "cuda"] + extra)
+        finally:
+            sys.stdout = saved
+        check(rc == 0, f"ber_sweep {extra} returned {rc}")
+        lines = out.getvalue().splitlines()
+        cols = lines[0].split(",")
+        for ln in lines[1:]:
+            log(f"ber_sweep {' '.join(extra)}: {ln}")
+            rows.append((" ".join(extra), dict(zip(cols, ln.split(",")))))
+    check(len(rows) == 4, f"ber_sweep printed {len(rows)} rows")
+    for name, r in rows:
+        if float(r["snr_db"]) == 2.0:
+            check(int(r["locked_frames"]) == 0, f"{name}: locked at 2 dB")
+            continue
+        check(int(r["locked_frames"]) >= 3
+              and float(r["vit_byte_err"]) == 0.0
+              and float(r["fib_crc_rate"]) == 1.0,
+              f"{name}: the 14 dB row is not clean: {r}")
+        if "--echo" not in name:
+            check(float(r["raw_ber"]) < 1e-2, f"{name}: raw BER {r}")
+    launches, by_t = dict(K.LAUNCHES), dict(K.ACS_LAUNCHES_BY_T)
+    check(set(by_t) == {774} and launches == launched(
+        viterbi_decode_fused=by_t[774]),
+          f"ber phase launches {launches} by T {by_t}")
+    log(f"ber path: K1 {launches} by T {by_t}")
+    return launches
 
 
 def _device_profile(tp, wall_s):
@@ -1491,7 +1770,9 @@ def main():
                                    sents),
                 "variants": phase("variants", variants_path, dev, paths),
                 "batched": phase("batched", batched_path, dev, paths, sents),
-                "mesh": phase("mesh", mesh_path, dev, paths, sents)}
+                "mesh": phase("mesh", mesh_path, dev, paths, sents),
+                "tx": phase("tx", tx_path, dev),
+                "ber": phase("ber", ber_path, dev)}
     log("phases: " + ", ".join(f"{n} {t:.2f} s" for n, t in phases))
     from dab_radio_tpu_torch.host.native import native_status
     log("host native libraries: " + ", ".join(

@@ -53,7 +53,7 @@ def subchannel_config_from_jax(cfg) -> SubchannelConfig:
     return _own(SubchannelConfig, cfg)
 
 
-def msc_state_from_jax(state: dict, device="cpu") -> dict:
+def msc_state_from_jax(state: dict, device) -> dict:
     """``dab_radio_tpu`` MSCDecoder.__getstate__() -> the port's
     MSCDecoder.__setstate__() input: the port's subchannel config, fill
     count and the (16, nb_bits) int8 deinterleaver history."""

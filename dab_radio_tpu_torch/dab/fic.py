@@ -44,8 +44,7 @@ def _fic_decode_fn():
 class FICDecoder:
     """Soft FIC bits of one frame -> list of CRC-valid 30-byte FIB payloads."""
 
-    def __init__(self, transmission_mode: int = 1,
-                 device: torch.device = torch.device("cpu")):
+    def __init__(self, transmission_mode: int, device: torch.device):
         self.dab = get_dab_params(transmission_mode)
         if self.dab.nb_fib_cif_bits != 2304:
             raise NotImplementedError(

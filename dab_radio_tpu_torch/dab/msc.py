@@ -151,8 +151,7 @@ def decode_frame_group(decoders: list, msc_cifs) -> list:
 class MSCDecoder:
     """Streaming decoder for one subchannel."""
 
-    def __init__(self, cfg: SubchannelConfig,
-                 device: torch.device = torch.device("cpu")):
+    def __init__(self, cfg: SubchannelConfig, device: torch.device):
         self.cfg = cfg
         self.nb_bits = cfg.nb_cif_bits
         self.spec = msc_spec(cfg)

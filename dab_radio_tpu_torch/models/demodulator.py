@@ -67,7 +67,7 @@ class DemodCarry(NamedTuple):
     total_desync: torch.Tensor    # i32
 
     @classmethod
-    def init(cls, batch_shape=(), device="cpu") -> "DemodCarry":
+    def init(cls, batch_shape=(), *, device) -> "DemodCarry":
         return cls(*[torch.zeros(batch_shape, dtype=dt, device=device)
                      for dt in _CARRY_DTYPES])
 
@@ -88,8 +88,8 @@ class OFDMDemodulator:
     """Holds the mode constants (on `device`) and the frame step."""
 
     def __init__(self, transmission_mode: int = 1,
-                 config: DemodConfig = DemodConfig(),
-                 device: torch.device = torch.device("cpu")):
+                 config: DemodConfig = DemodConfig(), *,
+                 device: torch.device):
         self.mode = transmission_mode
         self.cfg = config
         self.device = torch.device(device)

@@ -1,10 +1,11 @@
-"""OFDM modulator (port of ``dab_radio_tpu/models/modulator.py``, the
-modulate path).
+"""OFDM modulator (port of ``dab_radio_tpu/models/modulator.py``).
 
 QPSK-map logical bits, frequency-interleave onto physical carriers,
 accumulate the differential phase across symbols (``torch.cumprod`` over
 the symbol axis, where the JAX package uses an associative scan), batched
-IFFT, cyclic prefix by concatenation.
+IFFT, cyclic prefix by concatenation. ``modulate_reference_bytes`` gives
+the reference transmitter's byte contract (bytes straight onto physical
+carriers) for the simulate_transmitter app.
 
 Bit convention: input bits are in the demodulator output order: for data
 symbol s, bits[s, i] is b0 and bits[s, i + ncarriers] is b1 of logical
@@ -19,8 +20,7 @@ from ..params.mapper import get_carrier_mapper, get_carrier_to_fft_bin
 
 
 class OFDMModulator:
-    def __init__(self, transmission_mode: int = 1,
-                 device: torch.device = torch.device("cpu")):
+    def __init__(self, transmission_mode: int, device: torch.device):
         self.params = p = get_ofdm_params(transmission_mode)
         self.device = dev = torch.device(device)
         prs_fft = get_prs_reference(transmission_mode, p.nb_fft)
@@ -35,6 +35,11 @@ class OFDMModulator:
         # PRS spectrum restricted to the data-carrier slots (phase seed)
         self.prs_slots = torch.as_tensor(
             prs_fft[carrier_bins].astype(np.complex64), device=dev)
+        # the reference byte contract's QPSK points, by 2-bit value
+        amp = 1.0 / np.sqrt(2.0)
+        self._phase_map = torch.as_tensor(np.array(
+            [-amp - 1j * amp, amp - 1j * amp, amp + 1j * amp,
+             -amp + 1j * amp], np.complex64), device=dev)
 
     def modulate_frame(self, bits) -> torch.Tensor:
         """bits: (..., S-1, 2*ncarriers) or (..., (S-1)*2*ncarriers) 0/1.
@@ -74,3 +79,32 @@ class OFDMModulator:
     def modulate_stream(self, frames_bits) -> torch.Tensor:
         """(F, S-1, 2*ncarr) bits -> concatenated multi-frame IQ stream."""
         return self.modulate_frame(frames_bits).reshape(-1)
+
+    def modulate_reference_bytes(self, data) -> np.ndarray:
+        """Reference byte contract (ofdm_modulator.cpp CreateDataSymbol):
+        2-bit groups map directly onto physical carriers, the first half of
+        each symbol's bytes fill the negative frequencies. For the
+        simulate_transmitter app: the gather onto the phase map, the
+        differential phase and the IFFT run on the modulator's device;
+        returns one frame of IQ as numpy complex64."""
+        p = self.params
+        nbytes_sym = p.nb_data_carriers * 2 // 8
+        data = torch.as_tensor(
+            np.asarray(data, dtype=np.uint8).reshape(p.nb_data_symbols,
+                                                     nbytes_sym),
+            device=self.device)
+        shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=self.device)
+        pairs = ((data[..., None] >> shifts) & 0b11).reshape(
+            p.nb_data_symbols, -1).to(torch.int64)
+        q = self._phase_map[pairs]                            # (S-1, ncarr)
+        # slots ordered negative-then-positive == carrier_bins layout
+        spec_slots = torch.cumprod(torch.cat([self.prs_slots[None], q]),
+                                   dim=0)
+        spec = torch.zeros((p.nb_frame_symbols, p.nb_fft),
+                           dtype=torch.complex64, device=self.device)
+        spec[:, self.carrier_bins] = spec_slots
+        td = torch.fft.ifft(spec) * p.nb_fft
+        sym = torch.cat([td[:, -p.nb_cyclic_prefix:], td], dim=-1)
+        out = torch.cat([torch.zeros(p.nb_null_period, dtype=torch.complex64,
+                                     device=self.device), sym.reshape(-1)])
+        return out.cpu().numpy()

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from .demodulator import OFDMDemodulator, DemodCarry, _select
-from ..parallel.mesh import _u8_to_complex
+from ..parallel.mesh import _u8_to_complex, shard_demod_batch
 from ..utils.backend import to_device
 
 
@@ -34,11 +34,21 @@ class MultiStreamDemodulator:
     fetch_bits=False keeps each round's soft bits on the device (the frames
     returned are rows of the batched output); pair it with ReceiverFleet,
     whose decode takes them there, so that only decoded bytes reach the
-    host."""
+    host.
+
+    mesh= (a ``parallel.mesh.ReceiverMesh``, one process a rank) splits the
+    nb_streams rows over the mesh's 'ens' axis, as the JAX class's
+    ``sharding=`` splits the windows' rows over devices: this rank holds and
+    steps the streams ``rows = (lo, hi)`` of its ens coordinate
+    (``parallel/mesh.py:shard_demod_batch``), takes pushes for them only and
+    returns their frames under their global stream numbers. Every stream's
+    demodulation is its own, so no collective runs; feed the frames to a
+    ReceiverFleet of hi - lo receivers on the same rank. A mesh whose 'time'
+    or 'sub' axis is above 1 is refused."""
 
     def __init__(self, demod: OFDMDemodulator, nb_streams: int,
                  frames_per_step: int = 1, ingest: str = "c64",
-                 fetch_bits: bool = True, *, device):
+                 fetch_bits: bool = True, *, device, mesh=None):
         if ingest not in ("c64", "u8"):
             raise ValueError(f"ingest must be 'c64' or 'u8', got {ingest!r}")
         self.device = torch.device(device)
@@ -47,15 +57,25 @@ class MultiStreamDemodulator:
                              f"batch was asked for on {self.device}")
         self.fetch_bits = fetch_bits
         self.demod = demod
-        self.B = nb_streams
+        self.nb_streams = nb_streams
+        self._frame_step, self.rows = demod.frame_step_batch, (0, nb_streams)
+        if mesh is not None:
+            for axis in ("time", "sub"):
+                if mesh.shape[axis] > 1:
+                    raise ValueError(
+                        "MultiStreamDemodulator splits only the batch's rows: "
+                        f"the mesh's {axis!r} axis has {mesh.shape[axis]} "
+                        "ranks, it must have 1")
+            self._frame_step, self.rows = shard_demod_batch(demod, mesh,
+                                                            nb_streams)
+        self.B = self.rows[1] - self.rows[0]        # the streams held here
         self.ingest = ingest
         empty = (np.zeros(0, np.complex64) if ingest == "c64"
                  else np.zeros(0, np.uint8))
-        self.bufs: List[np.ndarray] = [empty.copy()
-                                       for _ in range(nb_streams)]
-        self.tracking = np.zeros(nb_streams, dtype=bool)
-        self.l1 = np.zeros(nb_streams, dtype=np.float32)
-        self.carry = DemodCarry.init((nb_streams,), device=self.device)
+        self.bufs: List[np.ndarray] = [empty.copy() for _ in range(self.B)]
+        self.tracking = np.zeros(self.B, dtype=bool)
+        self.l1 = np.zeros(self.B, dtype=np.float32)
+        self.carry = DemodCarry.init((self.B,), device=self.device)
         self.frames_emitted = 0
         # K-frame rounds: B streams x K tracking steps per host read
         self.frames_per_step = max(1, frames_per_step)
@@ -63,16 +83,22 @@ class MultiStreamDemodulator:
     def load_state(self, state: dict):
         """Take over the streaming state of another instance (see
         ``convert.multistream_state_from_jax``): carry leaves (B,), unread
-        samples, lock flags, acquisition levels, frame count."""
-        if len(state["bufs"]) != self.B or state["ingest"] != self.ingest:
+        samples, lock flags, acquisition levels, frame count. On a mesh the
+        state may be the whole batch's (nb_streams rows, as one process
+        holds it): this rank takes its rows of it; the frame count stays
+        the whole batch's."""
+        n = len(state["bufs"])
+        rows = slice(*self.rows) if n == self.nb_streams else slice(None)
+        if n not in (self.B, self.nb_streams) or \
+                state["ingest"] != self.ingest:
             raise ValueError("the state is of another batch: "
-                             f"{len(state['bufs'])} streams of "
-                             f"{state['ingest']}, this one has {self.B} of "
-                             f"{self.ingest}")
-        self.carry = DemodCarry.from_numpy(state["carry"], self.device)
-        self.bufs = [np.array(b) for b in state["bufs"]]
-        self.tracking = np.array(state["tracking"], dtype=bool)
-        self.l1 = np.array(state["l1"], dtype=np.float32)
+                             f"{n} streams of {state['ingest']}, this one "
+                             f"has {self.B} of {self.ingest}")
+        self.carry = DemodCarry.from_numpy(
+            [np.asarray(x)[rows] for x in state["carry"]], self.device)
+        self.bufs = [np.array(b) for b in state["bufs"][rows]]
+        self.tracking = np.array(state["tracking"][rows], dtype=bool)
+        self.l1 = np.array(state["l1"][rows], dtype=np.float32)
         self.frames_emitted = int(state["frames_emitted"])
 
     # ---- the batched device rounds: demod and ready-mask carry merge ----
@@ -84,7 +110,7 @@ class MultiStreamDemodulator:
         return to_device(raw, self.device, np.complex64)
 
     def _masked_step(self, carry, wins, mask):
-        new_c, out = self.demod._frame_step_impl(carry, wins)
+        new_c, out = self._frame_step(carry, wins)
         return _select(mask, new_c, carry), out
 
     def _masked_scan(self, carry, bufs, mask):
@@ -123,8 +149,12 @@ class MultiStreamDemodulator:
                 else np.asarray(iq, np.uint8)
         else:
             arr = np.asarray(iq, np.complex64)
-        self.bufs[stream_idx] = np.concatenate(
-            [self.bufs[stream_idx], arr])
+        lo, hi = self.rows
+        if not lo <= stream_idx < hi:
+            raise ValueError(f"stream {stream_idx} is not held here: this "
+                             f"rank holds the streams [{lo}, {hi})")
+        i = stream_idx - lo
+        self.bufs[i] = np.concatenate([self.bufs[i], arr])
 
     def _acquire_stream(self, i: int) -> bool:
         d = self.demod
@@ -175,9 +205,11 @@ class MultiStreamDemodulator:
 
     def step(self):
         """One round: acquire unlocked streams, batch-demod locked ones.
-        Returns list of (stream_idx, bits) for frames produced; bits is a
-        numpy array, or with fetch_bits=False a row of a device tensor."""
+        Returns list of (stream_idx, bits) for frames produced, by global
+        stream number; bits is a numpy array, or with fetch_bits=False a row
+        of a device tensor."""
         d = self.demod
+        lo = self.rows[0]
         for i in range(self.B):
             if not self.tracking[i] and self._acquire_stream(i):
                 self.tracking[i] = True
@@ -199,7 +231,7 @@ class MultiStreamDemodulator:
             for k in range(K):
                 for i in ready:
                     if valid[i, k]:
-                        results.append((i, bits_h[i, k]))
+                        results.append((lo + i, bits_h[i, k]))
             for i in ready:
                 nb_ok = int(valid[i].sum())
                 self._advance(i, int(consumed[i]))
@@ -221,7 +253,7 @@ class MultiStreamDemodulator:
         results = []
         for i in ready:
             if sync_ok[i]:
-                results.append((i, bits[i]))
+                results.append((lo + i, bits[i]))
                 self._advance(i, int(offsets[i]) + d.frame_advance)
             else:
                 self.tracking[i] = False

@@ -72,8 +72,7 @@ class DabPlusChannel(ChannelCheckpointMixin):
 
     kind = "dab+"
 
-    def __init__(self, cfg: SubchannelConfig,
-                 device: torch.device = torch.device("cpu")):
+    def __init__(self, cfg: SubchannelConfig, device: torch.device):
         from ..dab.aac_data import AACDataDecoder
         from ..dab.slideshow import SlideshowManager
         self.cfg = cfg
@@ -166,8 +165,7 @@ class DabChannel(ChannelCheckpointMixin):
 
     kind = "dab"
 
-    def __init__(self, cfg: SubchannelConfig,
-                 device: torch.device = torch.device("cpu")):
+    def __init__(self, cfg: SubchannelConfig, device: torch.device):
         from ..dab.mp2 import MP2PadExtractor
         from ..dab.slideshow import SlideshowManager
         self.cfg = cfg
@@ -232,7 +230,7 @@ class DataPacketChannel(ChannelCheckpointMixin):
     kind = "packet"
 
     def __init__(self, cfg: SubchannelConfig, packet_address: int,
-                 fec_scheme: int, device: torch.device = torch.device("cpu")):
+                 fec_scheme: int, device: torch.device):
         from ..dab.packets import PacketProcessor
         self.cfg = cfg
         self.msc = MSCDecoder(cfg, device)
@@ -261,7 +259,7 @@ class DabReceiver:
     """Frame soft bits in -> ensemble database + per-subchannel channels."""
 
     def __init__(self, transmission_mode: int = 1, benchmark_all: bool = False,
-                 device: torch.device = torch.device("cpu")):
+                 *, device: torch.device):
         self.device = torch.device(device)
         self.dab = get_dab_params(transmission_mode)
         self.fic = FICDecoder(transmission_mode, self.device)

@@ -4,9 +4,9 @@ Builds a complete, decodable synthetic ensemble: FIG-carrying FIC, MSC
 subchannels with DAB+ superframes or raw stream payloads, proper frequency
 interleaving, so the whole receiver can be validated closed-loop without RF
 captures. The byte and bit layers are numpy (the FIG constructors and audio
-sources are copies of the JAX module's); the OFDM modulation runs on the
-transmitter's device. The X-PAD carousel helpers of the JAX transmitter
-(dynamic label, slideshow) are not ported.
+sources are copies of the JAX module's, and dynamic labels and slideshows
+ride the tone sources' X-PAD through ``pad_writer``); the OFDM modulation
+runs on the transmitter's device.
 """
 
 from dataclasses import dataclass, field
@@ -232,8 +232,8 @@ class EnsembleTransmitter:
 
     def __init__(self, transmission_mode: int = 1, ensemble_id: int = 0xC0FE,
                  ensemble_label: str = "TPU Ensemble",
-                 services: Optional[List[ServiceSpec]] = None,
-                 device: torch.device = torch.device("cpu")):
+                 services: Optional[List[ServiceSpec]] = None, *,
+                 device: torch.device):
         self.mode = transmission_mode
         self.dab = get_dab_params(transmission_mode)
         self.ofdm = get_ofdm_params(transmission_mode)
@@ -332,6 +332,29 @@ class EnsembleTransmitter:
     def push_packet_data_group(self, subchannel_id: int, group: bytes):
         """Queue an MSC data group onto a packet service's carousel."""
         self.packet_encoders[subchannel_id].push_data_group(group)
+
+    def _tone_source(self, subchannel_id: int) -> "ToneAudioSource":
+        src = self._au_source.get(subchannel_id)
+        if not isinstance(src, ToneAudioSource):
+            raise ValueError(f"subchannel {subchannel_id} has no tone AU "
+                             "source (call enable_tone_audio first)")
+        return src
+
+    def queue_dynamic_label(self, subchannel_id: int, text: str):
+        """Broadcast a dynamic label on a DAB+ service's X-PAD (one PAD
+        field per AU until the sequence drains)."""
+        from .pad_writer import dynamic_label_pad_fields
+        self._tone_source(subchannel_id).pad_fields.extend(
+            dynamic_label_pad_fields(text))
+
+    def queue_slideshow(self, subchannel_id: int, image: bytes,
+                        name: str = "slide.png", image_type: str = "png",
+                        tid: int = 1):
+        """Broadcast a MOT slideshow image on a DAB+ service's X-PAD."""
+        from .pad_writer import slideshow_pad_fields
+        self._tone_source(subchannel_id).pad_fields.extend(
+            slideshow_pad_fields(image, name=name, image_type=image_type,
+                                 tid=tid))
 
     def _next_mp2_frame(self, nb_bytes: int) -> bytes:
         """A frame-header-valid MP2-shaped payload (content is random; the

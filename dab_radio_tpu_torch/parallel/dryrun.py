@@ -48,17 +48,17 @@ SHAPES = [dict(length=12, is_uep=False, eep_type="A", eep_prot_level=2),
 WARM = 16                       # CIFs before the deinterleaver is full
 
 
-def ensemble(nb_streams: int, cfgs, nb_frames: int):
+def ensemble(nb_streams: int, cfgs, nb_frames: int, device):
     """(frame soft bits (B, F, nb_frame_bits) int8, IQ (B, F * fs)
     complex64) of nb_streams ensembles, each with one service a
-    subchannel of cfgs; the same on every rank."""
+    subchannel of cfgs, modulated on `device`; the same on every rank."""
     from ..models.transmitter import EnsembleTransmitter, ServiceSpec
     bits, iq = [], []
     for b in range(nb_streams):
         tx = EnsembleTransmitter(
             MODE, ensemble_id=0xC000 + b, ensemble_label=f"Mesh {b}",
             services=[ServiceSpec(0xF000 + 16 * b + s, s, f"Svc {b}.{s}", c)
-                      for s, c in enumerate(cfgs)])
+                      for s, c in enumerate(cfgs)], device=device)
         fb = [tx.next_frame_bits() for _ in range(nb_frames)]
         bits.append(np.stack(fb))
         iq.append(np.concatenate([tx.modulate_frame_bits(x) for x in fb]))
@@ -126,7 +126,7 @@ def dryrun_multichip(mesh, device, frames: int = 20):
     step, (carry, hist, _) = multichip_receiver_step(
         mesh, MODE, f_loc, subchannels_per_shard=1, ensembles_per_shard=1,
         subchannel_cfgs=cfgs, device=device)
-    frame_bits, iq = ensemble(n_ens, cfgs, F)
+    frame_bits, iq = ensemble(n_ens, cfgs, F, device)
     e, t = mesh.coords["ens"], mesh.coords["time"]
     T_loc = iq.shape[1] // n_time
     pairs = iq[e:e + 1, t * T_loc:(t + 1) * T_loc].view(np.float32)

@@ -248,7 +248,7 @@ def test_fic_and_msc_decode_on_cuda_match_cpu(cuda):
                 for _ in range(12)]
     soft = _noisy(fic.FICEncoder(1).encode_fic(payloads), rng, 60.0)
     got = fic.FICDecoder(1, cuda).decode_fic(soft)
-    ref = fic.FICDecoder(1).decode_fic(soft)
+    ref = fic.FICDecoder(1, device="cpu").decode_fic(soft)
     assert got[0] == ref[0] and got[1]["crc_errors"] == ref[1]["crc_errors"]
     np.testing.assert_array_equal(got[1]["viterbi_error"],
                                   ref[1]["viterbi_error"])
@@ -256,7 +256,7 @@ def test_fic_and_msc_decode_on_cuda_match_cpu(cuda):
             SubchannelConfig(12, 12, False, eep_type="A", eep_prot_level=2)]
     encs = [msc.MSCEncoder(c) for c in cfgs]
     dg = [msc.MSCDecoder(c, cuda) for c in cfgs]
-    dc = [msc.MSCDecoder(c) for c in cfgs]
+    dc = [msc.MSCDecoder(c, device="cpu") for c in cfgs]
     for _ in range(6):
         cifs = np.zeros((4, 864 * 64), np.int8)
         for k in range(4):
@@ -283,7 +283,7 @@ def test_receive_chain_on_cuda_matches_cpu(cuda):
     iq = (iq * np.exp(2j * np.pi * 2.4 / 2048 * n) + noise[0] + 1j * noise[1]
           ).astype(np.complex64)
     sdg = StreamingDemodulator(OFDMDemodulator(1, device=cuda))
-    sdc = StreamingDemodulator(OFDMDemodulator(1))
+    sdc = StreamingDemodulator(OFDMDemodulator(1, device="cpu"))
     fg, fc = sdg.process(iq), sdc.process(iq)
     assert len(fg) == len(fc) >= 3
     assert int(sdg.carry.total_desync) == int(sdc.carry.total_desync) == 0

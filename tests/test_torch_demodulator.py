@@ -90,7 +90,7 @@ def _feed(sd, iq, chunk=70000):
 @pytest.mark.parametrize("mode", [1, 2, 4])
 def test_streaming_demodulator_matches_jax(mode):
     iq = _capture(mode)
-    jsd, tsd = JStream(JDemod(mode)), TStream(TDemod(mode))
+    jsd, tsd = JStream(JDemod(mode)), TStream(TDemod(mode, device="cpu"))
     jsteps, tsteps = _record_steps(jsd), _record_steps(tsd)
     jf, tf = _feed(jsd, iq), _feed(tsd, iq)
     _compare_steps(jsteps, tsteps)
@@ -104,7 +104,7 @@ def test_streaming_demodulator_matches_jax(mode):
 def test_multi_frame_steps_match_jax():
     """frames_per_step > 1: K tracking steps per host read (frame_scan)."""
     iq = _capture(1)
-    jsd, tsd = JStream(JDemod(1), 3), TStream(TDemod(1), 3)
+    jsd, tsd = JStream(JDemod(1), 3), TStream(TDemod(1, device="cpu"), 3)
     calls = []
     inner = tsd.demod.frame_scan
     tsd.demod.frame_scan = lambda *a: calls.append(1) or inner(*a)
@@ -122,7 +122,7 @@ def test_resume_from_jax_snapshot():
     half = iq.shape[0] // 2
     jsd = JStream(JDemod(1))
     _feed(jsd, iq[:half])
-    tsd = TStream(TDemod(1))
+    tsd = TStream(TDemod(1, device="cpu"))
     tsd.restore(demod_state_from_jax(jsd.snapshot()))
     assert tsd.state == jsd.state and tsd._l1 == jsd._l1
     np.testing.assert_array_equal(tsd._buf.to_array(), jsd._buf.to_array())
@@ -135,13 +135,13 @@ def test_resume_from_jax_snapshot():
 
 def test_frame_step_batch_and_frame_scan_match_jax():
     iq = _capture(1)
-    jd, td = JDemod(1), TDemod(1)
+    jd, td = JDemod(1), TDemod(1, device="cpu")
     # the capture's first null symbol starts after the lead
     start = LEAD - 100
     starts = [start, start + jd.frame_advance + 7]
     wins = np.stack([iq[s:s + jd.window_len] for s in starts])
     jc, jo = jd.frame_step_batch(JCarry.init((2,)), wins)
-    tc, to = td.frame_step_batch(TCarry.init((2,)), wins)
+    tc, to = td.frame_step_batch(TCarry.init((2,), device="cpu"), wins)
     np.testing.assert_array_equal(to["sync_ok"].numpy(), np.asarray(jo["sync_ok"]))
     np.testing.assert_array_equal(to["offset"].numpy(), np.asarray(jo["offset"]))
     assert_soft_bits_close(to["bits"].numpy(), np.asarray(jo["bits"]),
@@ -149,7 +149,7 @@ def test_frame_step_batch_and_frame_scan_match_jax():
     K = 3
     buf = iq[start:start + K * jd.frame_advance + jd.window_len]
     jc, jpos, jouts = jd.frame_scan(K, JCarry.init(), buf)
-    tc, tpos, touts = td.frame_scan(K, TCarry.init(), buf)
+    tc, tpos, touts = td.frame_scan(K, TCarry.init(device="cpu"), buf)
     assert int(tpos) == int(jpos)
     np.testing.assert_array_equal(touts["valid"].numpy(),
                                   np.asarray(jouts["valid"]))

@@ -48,7 +48,7 @@ def test_fic_encoder_and_decoder_match_jax():
     garbled[:2304] = rng.integers(-127, 128, 2304)       # one CIF's FIBs fail
     for soft in (noisy, garbled):
         fj, ej = jfic.FICDecoder(1).decode_fic(soft)
-        ft, et = tfic.FICDecoder(1).decode_fic(soft)
+        ft, et = tfic.FICDecoder(1, device="cpu").decode_fic(soft)
         assert ft == fj
         assert et["crc_errors"] == ej["crc_errors"]
         np.testing.assert_array_equal(et["viterbi_error"],
@@ -78,7 +78,7 @@ def _msc_stream(cfgs, nb_frames, seed):
 def test_msc_decode_frame_matches_jax_through_fill():
     frames = _msc_stream([EEP, UEP], 6, seed=1)
     for cfg in (EEP, UEP):
-        dj, dt = jmsc.MSCDecoder(cfg), tmsc.MSCDecoder(_t(cfg))
+        dj, dt = jmsc.MSCDecoder(cfg), tmsc.MSCDecoder(_t(cfg), device="cpu")
         outs = []
         for f in frames:
             pj, pt = dj.decode_frame(f), dt.decode_frame(f)
@@ -91,7 +91,7 @@ def test_msc_decode_frame_matches_jax_through_fill():
 
 def test_msc_decode_cif_matches_jax():
     frames = _msc_stream([UEP], 5, seed=2)
-    dj, dt = jmsc.MSCDecoder(UEP), tmsc.MSCDecoder(_t(UEP))
+    dj, dt = jmsc.MSCDecoder(UEP), tmsc.MSCDecoder(_t(UEP), device="cpu")
     for f in frames:
         for cif in f:
             assert dt.decode_cif(cif) == dj.decode_cif(cif)
@@ -101,7 +101,8 @@ def test_msc_decode_cif_matches_jax():
 def test_msc_decode_frame_group_matches_jax():
     frames = _msc_stream([EEP, EEP_B], 6, seed=3)
     dj = [jmsc.MSCDecoder(EEP), jmsc.MSCDecoder(EEP_B)]
-    dt = [tmsc.MSCDecoder(_t(EEP)), tmsc.MSCDecoder(_t(EEP_B))]
+    dt = [tmsc.MSCDecoder(_t(EEP), device="cpu"),
+          tmsc.MSCDecoder(_t(EEP_B), device="cpu")]
     assert tmsc.group_key(_t(EEP)) == tmsc.group_key(_t(EEP_B))
     for f in frames:
         rj = jmsc.decode_frame_group(dj, f)
@@ -120,7 +121,7 @@ def test_msc_state_from_jax_resumes_mid_fill():
         dj.decode_frame(f)
     assert dj.nb_pushed == 8                     # deinterleaver still filling
     dt = tmsc.MSCDecoder.__new__(tmsc.MSCDecoder)
-    dt.__setstate__(msc_state_from_jax(dj.__getstate__()))
+    dt.__setstate__(msc_state_from_jax(dj.__getstate__(), device="cpu"))
     assert type(dt.cfg) is TConfig and dt.cfg == _t(EEP)
     assert _t(dataclasses.asdict(EEP)) == _t(EEP)         # from a field dict
     for f in frames[2:]:
@@ -139,15 +140,16 @@ def test_tiled_decode_mode_matches_jax(std):
     rng = np.random.default_rng(7)
     frames = _noisy(_msc_stream([EEP, EEP_B, UEP], 6, seed=5), rng,
                     std=np.sqrt(max(std ** 2 - 40.0 ** 2, 0.0)))
-    exact = tmsc.MSCDecoder(_t(UEP))
+    exact = tmsc.MSCDecoder(_t(UEP), device="cpu")
     want_exact = [p for f in frames for p in exact.decode_frame(f)]
     try:
         jmsc.set_decode_mode("tiled")
         tmsc.set_decode_mode("tiled")
-        dj, dt = jmsc.MSCDecoder(UEP), tmsc.MSCDecoder(_t(UEP))
-        cj, ct = jmsc.MSCDecoder(UEP), tmsc.MSCDecoder(_t(UEP))
+        dj, dt = jmsc.MSCDecoder(UEP), tmsc.MSCDecoder(_t(UEP), device="cpu")
+        cj, ct = jmsc.MSCDecoder(UEP), tmsc.MSCDecoder(_t(UEP), device="cpu")
         gj = [jmsc.MSCDecoder(EEP), jmsc.MSCDecoder(EEP_B)]
-        gt = [tmsc.MSCDecoder(_t(EEP)), tmsc.MSCDecoder(_t(EEP_B))]
+        gt = [tmsc.MSCDecoder(_t(EEP), device="cpu"),
+              tmsc.MSCDecoder(_t(EEP_B), device="cpu")]
         got = []
         for f in frames:
             pt = dt.decode_frame(f)

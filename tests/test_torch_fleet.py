@@ -162,7 +162,7 @@ def test_fleet_equals_standalone_receivers(ensembles):
     tsink, tview = run(TFleet(3, 1, device=CPU),
                        rounds(ensembles, 0, NB_FRAMES))
     for k, frames in enumerate(ensembles):
-        rx, aus = TRx(1), {}
+        rx, aus = TRx(1, device="cpu"), {}
 
         def on_channel(sub_id, ch):
             got = aus.setdefault(sub_id, [])

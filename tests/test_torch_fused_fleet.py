@@ -47,6 +47,16 @@ AUDIO_CFGS = [JCfg(0, 12, **EEP3A), JCfg(12, 12, **EEP3A)]
 CPU = torch.device("cpu")
 
 
+# the port's constructors take the device; these stand where the JAX
+# package's classes are passed in
+def CPU_DEMOD(mode):
+    return TDemod(mode, device="cpu")
+
+
+def CPU_RX(mode):
+    return TRx(mode, device="cpu")
+
+
 def _au_source(seed):
     rng = np.random.default_rng(seed)
 
@@ -282,7 +292,7 @@ def test_from_receiver_one_and_a_list(streams, two_ensembles):
     database equal the JAX fleet's, the database carries over, and the
     decode matches; a list of receivers gives per-stream rows."""
     jrx = _discover(JStream, JDemod, JRx, streams[0])
-    trx = _discover(TStream, TDemod, TRx, streams[0])
+    trx = _discover(TStream, CPU_DEMOD, CPU_RX, streams[0])
     jf = JFleet.from_receiver(jrx, nb_streams=2, transmission_mode=MODE,
                               frames_per_step=K)
     tf = TFleet.from_receiver(trx, nb_streams=2, transmission_mode=MODE,
@@ -297,7 +307,7 @@ def test_from_receiver_one_and_a_list(streams, two_ensembles):
 
     rows, u8 = two_ensembles
     jrxs = [_discover(JStream, JDemod, JRx, row) for row in u8]
-    trxs = [_discover(TStream, TDemod, TRx, row) for row in u8]
+    trxs = [_discover(TStream, CPU_DEMOD, CPU_RX, row) for row in u8]
     jf = JFleet.from_receiver(jrxs, transmission_mode=MODE, frames_per_step=K)
     tf = TFleet.from_receiver(trxs, transmission_mode=MODE, frames_per_step=K,
                               device=CPU)

@@ -85,7 +85,7 @@ def rounds_u8(caps, nb_rounds, tail=True):
     """[(blk (B, 2T), tail (B, 2*halo) or None)] of u8 rounds."""
     u8 = np.stack([quantise_u8(c) for c in caps])
     T = F * FS
-    halo = OFDMDemodulator(MODE).window_len - FS
+    halo = OFDMDemodulator(MODE, device="cpu").window_len - FS
     out = []
     for r in range(nb_rounds):
         blk = u8[:, 2 * T * r:2 * T * (r + 1)]
@@ -399,9 +399,10 @@ def test_round_equals_the_ports_own_decoders(captures, monkeypatch):
     tstep, (carry, hist, _) = receiver_step(
         "cpu", MODE, F, subchannels_per_shard=3, ensembles_per_shard=1,
         ingest="u8", subchannel_cfgs=cfgs, fuse_fic=True)
-    demod = OFDMDemodulator(MODE)
+    demod = OFDMDemodulator(MODE, device="cpu")
     demod_fn = make_timesharded_demod(demod, F)
-    fic, decs = FICDecoder(MODE), [MSCDecoder(c) for c in cfgs]
+    fic = FICDecoder(MODE, device="cpu")
+    decs = [MSCDecoder(c, device="cpu") for c in cfgs]
     nb_fic = fic.dab.nb_fic_bits
     dcarry = carry
     monkeypatch.setattr(tvit, "viterbi_decode", recording)

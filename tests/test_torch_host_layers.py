@@ -29,6 +29,7 @@ COPIED = [
     "dab.sbr", "dab.ps", "dab.ps_synth", "dab.mp2", "dab.pad", "dab.mot",
     "dab.slideshow", "dab.packets",
     "host.native", "host.io", "host.codecs", "host.audio", "host.scraper",
+    "host.device", "models.channel", "models.pad_writer",
 ]
 # names one side has and the other rightly lacks
 ONLY_JAX = {"ops.rs": {"rs_syndromes_device"}}
@@ -339,7 +340,7 @@ def _ensemble(tone=True):
         ServiceSpec(0xF204, 4, "Data", SubchannelConfig(180, 12, **eep),
                     kind="packet", scid=5, packet_address=42),
     ]
-    tx = EnsembleTransmitter(1, services=services)
+    tx = EnsembleTransmitter(1, services=services, device="cpu")
     if tone:
         tx.enable_tone_audio()
     return tx

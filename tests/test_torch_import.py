@@ -1,8 +1,9 @@
 """The PyTorch port loads neither JAX nor the JAX package: in a fresh
 interpreter, import every module of the package and run its main path
 (transmitter -> u8 file -> radio_cli, then fleet_serve, each also with the
-decode variants, then MultiStreamDemodulator into ReceiverFleet, on the CPU)
-for a few frames, then check sys.modules; the same in every rank of the
+decode variants, then MultiStreamDemodulator into ReceiverFleet, then
+simulate_transmitter, ber_sweep and radio_app, on the CPU) for a few
+frames, then check sys.modules; the same in every rank of the
 mesh dry run (``parallel/dryrun.py``, two gloo ranks on the CPU); and no
 source file of the port imports either."""
 
@@ -34,7 +35,8 @@ SCRIPT = textwrap.dedent("""
                                                         ServiceSpec)
     tx = EnsembleTransmitter(1, services=[ServiceSpec(
         0xF123, 3, "Radio", SubchannelConfig(0, 12, False, eep_type="A",
-                                             eep_prot_level=2))])
+                                             eep_prot_level=2))],
+        device="cpu")
     iq = np.concatenate([np.zeros(5000, np.complex64), tx.generate(2),
                          np.zeros(5000, np.complex64)])
     path = sys.argv[1]
@@ -55,14 +57,25 @@ SCRIPT = textwrap.dedent("""
     from dab_radio_tpu_torch.models.demodulator import OFDMDemodulator
     from dab_radio_tpu_torch.models.fleet import ReceiverFleet
     from dab_radio_tpu_torch.models.multistream import MultiStreamDemodulator
-    ms = MultiStreamDemodulator(OFDMDemodulator(1), 1, ingest="u8",
-                                fetch_bits=False, device="cpu")
+    ms = MultiStreamDemodulator(OFDMDemodulator(1, device="cpu"), 1,
+                                ingest="u8", fetch_bits=False, device="cpu")
     fleet = ReceiverFleet(1, 1, pipeline_depth=1, device="cpu")
     ms.push(0, np.fromfile(path, np.uint8))
     for frames in iter(ms.step, []):
         fleet.process_frames(frames)
     fleet.flush()
     assert fleet.summary()["frames"] == 2 and fleet.receivers[0].db.services
+    import io
+    from dab_radio_tpu_torch.apps import (ber_sweep, radio_app,
+                                          simulate_transmitter)
+    real, sys.stdout = sys.stdout, io.TextIOWrapper(io.BytesIO())
+    assert simulate_transmitter.main(["--payload", "random", "-n", "1",
+                                      "-M", "2", "--backend", "cpu"]) == 0
+    assert ber_sweep.main(["-M", "2", "--snr", "14", "-n", "2",
+                           "--backend", "cpu"]) == 0
+    sys.stdout = real
+    assert radio_app.main(["--device", "file", "-i", path, "--audio-out", "",
+                           "--backend", "cpu"]) == 0
     assert "jax" not in sys.modules, "the main path loaded jax"
     loaded = [m for m in sys.modules
               if m == "dab_radio_tpu" or m.startswith("dab_radio_tpu.")]
@@ -121,3 +134,67 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     for path in sources:
         bad = _imported_modules(path) & {"jax", "jaxlib", "dab_radio_tpu"}
         assert not bad, f"{os.path.relpath(path, ROOT)} imports {sorted(bad)}"
+
+
+def _device_defaults():
+    """(qualified name, default) of every parameter named device that has a
+    default, over the public classes (their methods included) and functions
+    of every module of the port."""
+    import importlib
+    import inspect
+    import pkgutil
+    import dab_radio_tpu_torch
+    found = []
+
+    def visit(name, fn):
+        try:
+            sig = inspect.signature(fn)
+        except (TypeError, ValueError):
+            return
+        p = sig.parameters.get("device")
+        if p is not None and p.default is not inspect.Parameter.empty:
+            found.append((name, p.default))
+
+    for m in pkgutil.walk_packages(dab_radio_tpu_torch.__path__,
+                                   "dab_radio_tpu_torch."):
+        mod = importlib.import_module(m.name)
+        for name, obj in vars(mod).items():
+            if name.startswith("_") or getattr(obj, "__module__", None) \
+                    != mod.__name__:
+                continue
+            if inspect.isclass(obj):
+                for attr, member in vars(obj).items():
+                    if attr.startswith("_") and attr != "__init__":
+                        continue
+                    if isinstance(member, (classmethod, staticmethod)):
+                        member = member.__func__
+                    if inspect.isfunction(member):
+                        visit(f"{mod.__name__}.{name}.{attr}", member)
+            elif inspect.isfunction(obj):
+                visit(f"{mod.__name__}.{name}", obj)
+    return found
+
+
+def test_no_public_signature_defaults_to_the_cpu():
+    """A caller who names no device gets an error, never the CPU: no public
+    constructor, method or function of the port has a device parameter
+    whose default resolves to the CPU (None, where a function documents it
+    as its rank's card, is no CPU; an ALSA device name is no torch
+    device)."""
+    import torch
+
+    def cpu(d):
+        try:
+            return d is not None and torch.device(d).type == "cpu"
+        except RuntimeError:
+            return False
+    found = _device_defaults()
+    assert ("dab_radio_tpu_torch.host.audio.AlsaSink.__init__", "default") \
+        in found
+    bad = [(name, d) for name, d in found if cpu(d)]
+    assert not bad, f"device defaults to the CPU in {bad}"
+    # the walk reaches the constructors that once had such a default
+    from dab_radio_tpu_torch.models.demodulator import OFDMDemodulator
+    import inspect
+    p = inspect.signature(OFDMDemodulator).parameters["device"]
+    assert p.default is inspect.Parameter.empty

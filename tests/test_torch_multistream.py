@@ -147,8 +147,8 @@ def assert_state_equal(tms, jms):
                                       ("u8", 2)])
 def test_multistream_matches_jax(streams, ingest, K):
     jms = JMulti(JDemod(MODE), 3, frames_per_step=K, ingest=ingest)
-    tms = TMulti(TDemod(MODE), 3, frames_per_step=K, ingest=ingest,
-                 device=CPU)
+    tms = TMulti(TDemod(MODE, device=CPU), 3, frames_per_step=K,
+                 ingest=ingest, device=CPU)
     want, jlocks = drive(jms, streams, ingest)
     got, tlocks = drive(tms, streams, ingest)
     assert tlocks == jlocks
@@ -167,8 +167,9 @@ def test_multistream_matches_jax(streams, ingest, K):
 def test_bits_kept_on_the_device_equal_fetched(streams, K):
     """fetch_bits=False hands out rows of the round's tensor: the same
     values, and no numpy copy."""
-    a = TMulti(TDemod(MODE), 3, frames_per_step=K, ingest="u8", device=CPU)
-    b = TMulti(TDemod(MODE), 3, frames_per_step=K, ingest="u8",
+    a = TMulti(TDemod(MODE, device=CPU), 3, frames_per_step=K, ingest="u8",
+               device=CPU)
+    b = TMulti(TDemod(MODE, device=CPU), 3, frames_per_step=K, ingest="u8",
                fetch_bits=False, device=CPU)
     kinds = set()
     fa, _ = drive(a, streams[:3], "u8")
@@ -188,8 +189,8 @@ def test_state_carried_over_from_jax(streams, ingest, K):
     rest = [s[s.shape[0] // 2:] for s in streams]
     jms = JMulti(JDemod(MODE), 3, frames_per_step=K, ingest=ingest)
     drive(jms, half, ingest)
-    tms = TMulti(TDemod(MODE), 3, frames_per_step=K, ingest=ingest,
-                 device=CPU)
+    tms = TMulti(TDemod(MODE, device=CPU), 3, frames_per_step=K,
+                 ingest=ingest, device=CPU)
     state = multistream_state_from_jax(jms)
     assert [x.dtype for x in state["carry"]] == [
         np.float32, np.float32, np.bool_, np.float32, np.int32, np.int32]
@@ -200,7 +201,7 @@ def test_state_carried_over_from_jax(streams, ingest, K):
     assert tlocks == jlocks and len(got) >= 3 * 12
     assert_frames_close(got, want)
     assert_state_equal(tms, jms)
-    other = TMulti(TDemod(MODE), 2, ingest=ingest, device=CPU)
+    other = TMulti(TDemod(MODE, device=CPU), 2, ingest=ingest, device=CPU)
     with pytest.raises(ValueError, match="another batch"):
         other.load_state(state)
 
@@ -241,8 +242,8 @@ def test_multistream_into_fleet_matches_jax(streams, depth, K, fetch):
     want = run(JMulti(JDemod(MODE), 3, frames_per_step=K, ingest="u8",
                       fetch_bits=fetch),
                JFleet(3, MODE, pipeline_depth=depth))
-    got = run(TMulti(TDemod(MODE), 3, frames_per_step=K, ingest="u8",
-                     fetch_bits=fetch, device=CPU),
+    got = run(TMulti(TDemod(MODE, device=CPU), 3, frames_per_step=K,
+                     ingest="u8", fetch_bits=fetch, device=CPU),
               TFleet(3, MODE, pipeline_depth=depth, device=CPU))
     assert got == want
     assert sorted(got[0]) == [(0, 1), (0, 2), (1, 1), (1, 2), (2, 1)]
@@ -252,12 +253,12 @@ def test_multistream_into_fleet_matches_jax(streams, depth, K, fetch):
 
 def test_arguments():
     with pytest.raises(TypeError, match="device"):
-        TMulti(TDemod(MODE), 2)
+        TMulti(TDemod(MODE, device=CPU), 2)
     with pytest.raises(ValueError, match="ingest"):
-        TMulti(TDemod(MODE), 2, ingest="s16", device=CPU)
+        TMulti(TDemod(MODE, device=CPU), 2, ingest="s16", device=CPU)
     with pytest.raises(ValueError, match="lies on"):
-        TMulti(TDemod(MODE), 2, device="meta")
-    ms = TMulti(TDemod(MODE), 2, ingest="u8", device="cpu")
+        TMulti(TDemod(MODE, device=CPU), 2, device="meta")
+    ms = TMulti(TDemod(MODE, device=CPU), 2, ingest="u8", device="cpu")
     assert ms.step() == [] and ms.frames_per_step == 1
     ms.push(0, bytes([127, 128] * 10))
     assert ms._n_samples(0) == 10 and ms.bufs[0].dtype == np.uint8

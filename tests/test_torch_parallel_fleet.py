@@ -23,9 +23,13 @@ from dab_radio_tpu.models.transmitter import EnsembleTransmitter, ServiceSpec
 from dab_radio_tpu.params import SubchannelConfig as JCfg
 from dab_radio_tpu_torch.convert import subchannel_config_from_jax as own
 from dab_radio_tpu_torch.models.fused_fleet import FusedFleet as TFleet
-from torch_ranks import (FS, HALO, MODE, STEP_FLAGS, assert_round_close, capture,
-                         jmesh_of, quantise_u8, run_dryrun, run_ranks,
-                         step_cases, step_reference)
+from dab_radio_tpu.models.fleet import ReceiverFleet as JRxFleet
+from dab_radio_tpu_torch.convert import multistream_state_from_jax
+from torch_ranks import (FS, HALO, MODE, STEP_FLAGS, assert_round_close,
+                         assert_soft_close, capture, drive_multistream,
+                         jax_multistream, jmesh_of, multistream_chunks,
+                         quantise_u8, run_dryrun, run_ranks, step_cases,
+                         step_reference)
 
 torch.set_num_threads(1)
 
@@ -100,6 +104,44 @@ def by_stream(aus):
     return out
 
 
+# the batched path over a mesh: four streams, a rank each on (4, 1, 1), from
+# the start and from the JAX batch's state after its first MS_RESUME_AFTER
+# pushes (early enough that a fresh fleet still finds superframes in the
+# rest); (2, 1, 2) is refused
+MS_AXES = (4, 1, 1)
+MS_RESUME_AFTER = 2
+
+
+def multistream_cases(u8):
+    """The multistream cases, and the JAX batches they are held against: a
+    fresh one, and one that has run the first pushes (whose state the
+    second case's ranks load)."""
+    chunks = multistream_chunks(u8)
+    resumed = jax_multistream(len(u8), MS_AXES)
+    drive_multistream(resumed, JRxFleet(len(u8), MODE),
+                      chunks[:MS_RESUME_AFTER])
+    cases = {"ms_ens": dict(kind="multistream", axes=MS_AXES, chunks=chunks,
+                            state=None),
+             "ms_resume": dict(kind="multistream", axes=MS_AXES,
+                               chunks=chunks[MS_RESUME_AFTER:],
+                               state=multistream_state_from_jax(resumed)),
+             "ms_sub": dict(kind="multistream", axes=(2, 1, 2),
+                            chunks=chunks[:1], state=None)}
+    return cases, {"ms_ens": jax_multistream(len(u8), MS_AXES),
+                   "ms_resume": resumed}
+
+
+def multistream_reference(case, jms):
+    if jms is None:
+        return None
+    fleet = JRxFleet(jms.B, MODE)
+    frames, aus = drive_multistream(jms, fleet, case["chunks"])
+    return {"frames": frames, "aus": aus, "tracking": jms.tracking.tolist(),
+            "unread": [x.shape[0] for x in jms.bufs],
+            "carry": [np.asarray(x) for x in jms.carry],
+            "labels": [rx.db.ensemble.label for rx in fleet.receivers]}
+
+
 @pytest.fixture(scope="module")
 def four_ranks(tmp_path_factory):
     caps = [capture(4, 9, 700.0), capture(5, 9, -1500.0)]
@@ -107,10 +149,17 @@ def four_ranks(tmp_path_factory):
     u8 = np.stack([audio_u8(1, 1100.0), audio_u8(2, -700.0)])
     cases["fleet_ens"] = fleet_case(u8, FLEET_ENS)
     cases["fleet_time"] = fleet_case(u8, FLEET_TIME)
+    ms_cases, jms = multistream_cases(np.concatenate(
+        [u8, np.stack([audio_u8(3, 400.0), audio_u8(4, -1300.0)])]))
+    cases.update(ms_cases)
     refs = {"step": step_reference, "fleet": fleet_reference}
+
+    def reference():
+        return {name: multistream_reference(c, jms.get(name))
+                if c["kind"] == "multistream" else refs[c["kind"]](c)
+                for name, c in cases.items()}
     ref, res = run_ranks(tmp_path_factory.mktemp("four_ranks"), 4, cases,
-                         lambda: {name: refs[c["kind"]](c)
-                                  for name, c in cases.items()})
+                         reference)
     return cases, ref, res
 
 
@@ -214,3 +263,69 @@ def test_dryrun_on_four_ranks(tmp_path):
     assert report["mesh"] == {"ens": 1, "time": 2, "sub": 2}
     assert report["subchannels"] == ["EEP3-A", "UEP#0"]
     assert [r["coords"]["time"] for r in report["ranks"]] == [0, 0, 1, 1]
+
+
+@pytest.mark.parametrize("name", ["ms_ens", "ms_resume"])
+def test_multistream_on_a_mesh_matches_jax(four_ranks, name):
+    """MultiStreamDemodulator(mesh=) on (4, 1, 1): each rank holds and steps
+    the stream of its ens coordinate, and a ReceiverFleet of that stream
+    decodes it on the same rank. Against the JAX class whose windows' rows
+    are split over the same mesh: every stream's frames in order (soft bits
+    within the 1 LSB on 5e-3 of ROADMAP F3), its access units and ensemble
+    label, its lock flag, unread samples and integer carry are the JAX
+    batch's; the ranks' rows together are all four streams. ms_resume
+    starts each rank from its rows of the JAX batch's state after its
+    first pushes."""
+    parts, want = four_ranks[2][name], four_ranks[1][name]
+    assert sorted(p["rows"] for p in parts) == [(b, b + 1) for b in range(4)]
+    assert sum(len(v) for v in want["aus"].values()) > 0
+    for p in parts:
+        lo, hi = p["rows"]
+        for b in range(lo, hi):
+            got = [bits for _, s, bits in p["frames"] if s == b]
+            exp = [bits for _, s, bits in want["frames"] if s == b]
+            assert len(got) == len(exp) >= 8, b
+            assert_soft_close(np.stack(got), np.stack(exp), f"stream {b}")
+            assert p["aus"].get(b) == want["aus"].get(b) and p["aus"][b], b
+        assert p["labels"] == want["labels"][lo:hi]
+        assert p["tracking"] == want["tracking"][lo:hi]
+        assert p["unread"] == want["unread"][lo:hi]
+        for k in (2, 4, 5):              # the lock flag and the counters
+            np.testing.assert_array_equal(p["carry"][k],
+                                          want["carry"][k][lo:hi])
+
+
+def test_multistream_refuses_a_mesh_with_sub_ranks(four_ranks):
+    """JAX's device_put of the windows splits rows only: a mesh whose 'sub'
+    axis is above 1 is refused on every rank, with the axis named."""
+    parts = four_ranks[2]["ms_sub"]
+    assert len(parts) == 4
+    for p in parts:
+        assert "'sub' axis has 2 ranks" in p["refused"]
+
+
+def test_multistream_mesh_checks_in_one_process():
+    """On one process: the rows of rank 1 of (2, 1, 1), pushes outside them
+    refused, the 'time' axis refused, and a state of another batch."""
+    from dab_radio_tpu_torch.models.demodulator import OFDMDemodulator
+    from dab_radio_tpu_torch.models.multistream import MultiStreamDemodulator
+    from dab_radio_tpu_torch.parallel.mesh import ReceiverMesh
+    demod = OFDMDemodulator(MODE, device="cpu")
+    ms = MultiStreamDemodulator(demod, 4, ingest="u8", device="cpu",
+                                mesh=ReceiverMesh((2, 1, 1), 1))
+    assert ms.rows == (2, 4) and ms.B == 2 and ms.step() == []
+    ms.push(3, np.zeros(8, np.uint8))
+    with pytest.raises(ValueError, match=r"\[2, 4\)"):
+        ms.push(1, np.zeros(8, np.uint8))
+    with pytest.raises(ValueError, match="'time' axis has 2"):
+        MultiStreamDemodulator(demod, 4, device="cpu",
+                               mesh=ReceiverMesh((2, 2, 1), 0))
+    with pytest.raises(ValueError, match="does not split"):
+        MultiStreamDemodulator(demod, 3, device="cpu",
+                               mesh=ReceiverMesh((2, 1, 1), 0))
+    other = MultiStreamDemodulator(demod, 3, ingest="u8", device="cpu")
+    state = {"carry": [x.numpy() for x in other.carry], "bufs": other.bufs,
+             "tracking": other.tracking, "l1": other.l1,
+             "frames_emitted": 0, "ingest": "u8"}
+    with pytest.raises(ValueError, match="another batch"):
+        ms.load_state(state)

@@ -160,7 +160,8 @@ def test_one_rank_mesh_without_a_process_group():
     iq, row0 = distributed.host_local_iq_to_global(
         mesh, np.zeros((2, 8), np.complex64), "cpu")
     assert row0 == 0 and iq.shape == (2, 8) and iq.device.type == "cpu"
-    step, rows = tmesh.shard_demod_batch(tmesh.OFDMDemodulator(MODE), mesh, 4)
+    step, rows = tmesh.shard_demod_batch(
+        tmesh.OFDMDemodulator(MODE, device="cpu"), mesh, 4)
     assert rows == (0, 4)
 
 
@@ -210,7 +211,7 @@ def test_mesh_step_on_one_rank_is_receiver_step():
 
 def test_bad_mesh_arguments_raise():
     with pytest.raises(ValueError, match="split over"):
-        tmesh.shard_demod_batch(tmesh.OFDMDemodulator(MODE),
+        tmesh.shard_demod_batch(tmesh.OFDMDemodulator(MODE, device="cpu"),
                                 tmesh.ReceiverMesh((1, 1, 2)), 3)
     with pytest.raises(ValueError, match="sub ranks"):
         tmesh.multichip_receiver_step(

@@ -37,6 +37,16 @@ NB_FRAMES = 16
 HDR = SuperFrameHeader(48000, True, True, False, 0)
 
 
+# the port's constructors take the device; these stand where the JAX
+# package's classes are passed in
+def CPU_DEMOD(mode):
+    return TDemod(mode, device="cpu")
+
+
+def CPU_RX(mode):
+    return TRx(mode, device="cpu")
+
+
 def _au_source(seed):
     rng = np.random.default_rng(seed)
 
@@ -108,7 +118,7 @@ def _db_view(rx):
 
 def test_port_chain_matches_jax_chain(capture):
     jrx, jgot = _run(JStream, JDemod, JRx, capture)
-    trx, tgot = _run(TStream, TDemod, TRx, capture)
+    trx, tgot = _run(TStream, CPU_DEMOD, CPU_RX, capture)
     assert tgot["frames"] == jgot["frames"] >= NB_FRAMES - 1
     assert tgot["desync"] == jgot["desync"] == 0
     assert tgot["fibs"] == jgot["fibs"]

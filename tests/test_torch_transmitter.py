@@ -55,17 +55,18 @@ def test_modulate_frame_matches_jax(mode):
     bits = rng.integers(0, 2, (2, p.nb_data_symbols, 2 * p.nb_data_carriers)
                         ).astype(np.uint8)
     ref = np.asarray(JMod(mode).modulate_frame(jnp.asarray(bits)))
-    got = TMod(mode).modulate_frame(bits).numpy()
+    got = TMod(mode, device="cpu").modulate_frame(bits).numpy()
     assert got.dtype == np.complex64 and got.shape == ref.shape
     # unit-power carriers summed by an unnormalised IFFT: |x| ~ 40, and
     # the cumulative phase products over 76 symbols differ by float32 ulps
     np.testing.assert_allclose(got, ref, rtol=0, atol=2e-3)
-    stream = TMod(mode).modulate_stream(bits).numpy()
+    stream = TMod(mode, device="cpu").modulate_stream(bits).numpy()
     np.testing.assert_array_equal(stream, got.reshape(-1))
 
 
 def test_ensemble_transmitter_matches_jax():
-    jtx, ttx = JTx(1, services=_services(JSpec)), TTx(1, services=_services(TSpec))
+    jtx = JTx(1, services=_services(JSpec))
+    ttx = TTx(1, services=_services(TSpec), device="cpu")
     jtx.set_au_source(3, _au_source(7))
     ttx.set_au_source(3, _au_source(7))
     for _ in range(3):
@@ -79,7 +80,7 @@ def test_ensemble_transmitter_matches_jax():
 
 def test_tone_audio_sources_match_jax():
     specs_j, specs_t = _services(JSpec), _services(TSpec)
-    jtx, ttx = JTx(1, services=specs_j), TTx(1, services=specs_t)
+    jtx, ttx = JTx(1, services=specs_j), TTx(1, services=specs_t, device="cpu")
     jtx.enable_tone_audio()
     ttx.enable_tone_audio()
     np.testing.assert_array_equal(ttx.next_frame_bits(), jtx.next_frame_bits())

@@ -83,18 +83,19 @@ RANK_SCRIPT = textwrap.dedent('''
                 [cat(1, i) for i in range(len(xs))])
 
     def demod(c, mesh):
-        fn = M.make_timesharded_demod(OFDMDemodulator(2), c["f_loc"],
-                                      c["block_tracking"], mesh=mesh)
+        fn = M.make_timesharded_demod(OFDMDemodulator(2, device="cpu"),
+                                      c["f_loc"], c["block_tracking"],
+                                      mesh=mesh)
         iq = local(mesh, c["iq"])
         B = iq.shape[0]
-        carry = DemodCarry.init((B, 1))._replace(
+        carry = DemodCarry.init((B, 1), device="cpu")._replace(
             signal_l1_avg=torch.full((B, 1), 0.5))
         tail = None if c["tail"] is None else local(mesh, c["tail"], False)
         return gather_time(mesh, *fn(carry, iq, tail))
 
     def coldstart(c, mesh):
-        fn = M.make_coldstart_timesharded_demod(OFDMDemodulator(2), mesh,
-                                                c["f_loc"])
+        fn = M.make_coldstart_timesharded_demod(
+            OFDMDemodulator(2, device="cpu"), mesh, c["f_loc"])
         return gather_time(mesh, *fn(local(mesh, c["iq"])))
 
     def step(c, mesh):
@@ -144,8 +145,52 @@ RANK_SCRIPT = textwrap.dedent('''
                                      g.summary() if other.is_leader else None)
         return M._gather_objects(mesh, res, 0)
 
+    def multistream(c, mesh):
+        """MultiStreamDemodulator(mesh=) (after loading c["state"], the JAX
+        batch's, when given) into a ReceiverFleet of this rank's streams:
+        the frames (round, global stream, bits) and access units by global
+        stream, and this rank's state after them; or the mesh's refusal."""
+        from dab_radio_tpu_torch.models.fleet import ReceiverFleet
+        from dab_radio_tpu_torch.models.multistream import (
+            MultiStreamDemodulator)
+        try:
+            ms = MultiStreamDemodulator(
+                OFDMDemodulator(2, device="cpu"), len(c["chunks"][0]),
+                ingest="u8", device="cpu", mesh=mesh)
+        except ValueError as e:
+            return M._gather_objects(mesh, {"rank": rank, "refused": str(e)},
+                                     0)
+        if c["state"] is not None:
+            ms.load_state(c["state"])
+        lo, hi = ms.rows
+        fleet, aus = ReceiverFleet(hi - lo, 2, device="cpu"), {}
+        for k, rx in enumerate(fleet.receivers):
+            def on_channel(sub_id, ch, b=lo + k):
+                ch.events.on_access_unit.append(
+                    lambda i, n, au, hdr: aus.setdefault(b, []).append(
+                        (sub_id, bytes(au))))
+            rx.on_audio_channel.append(on_channel)
+        frames, rnd = [], 0
+        for chunk in c["chunks"]:
+            for b in range(lo, hi):
+                ms.push(b, chunk[b])
+            while True:
+                res = ms.step()
+                rnd += 1
+                if not res:
+                    break
+                frames += [(rnd, b, np.array(bits)) for b, bits in res]
+                fleet.process_frames([(b - lo, bits) for b, bits in res])
+        fleet.flush()
+        return M._gather_objects(mesh, {
+            "rank": rank, "rows": (lo, hi), "frames": frames, "aus": aus,
+            "tracking": ms.tracking.tolist(),
+            "unread": [x.shape[0] for x in ms.bufs],
+            "carry": [x.numpy() for x in ms.carry],
+            "labels": [rx.db.ensemble.label for rx in fleet.receivers]}, 0)
+
     RUN = {"demod": demod, "coldstart": coldstart, "step": step,
-           "fleet": fleet}
+           "fleet": fleet, "multistream": multistream}
     results = {}
     for name, case in cases.items():
         mesh = M.make_receiver_mesh(axis_sizes=case["axes"])
@@ -285,3 +330,46 @@ def run_dryrun(work, world, axes):
     assert report["backend"] == "gloo" and len(report["ranks"]) == world
     assert not any(r["loaded_jax"] for r in report["ranks"])
     return report
+
+
+MS_CHUNK = 3 * FS + 1111             # samples a stream pushes at a time
+
+
+def multistream_chunks(u8):
+    """The (N, 2 * samples) u8 streams as pushes of MS_CHUNK samples."""
+    step = 2 * MS_CHUNK
+    return [[row[lo:lo + step] for row in u8]
+            for lo in range(0, u8.shape[1], step)]
+
+
+def drive_multistream(ms, fleet, chunks):
+    """What the rank script's multistream case does, on the JAX pair: the
+    frames (round, stream, bits) and the access units by stream."""
+    aus, frames, rnd = {}, [], 0
+    for k, rx in enumerate(fleet.receivers):
+        def on_channel(sub_id, ch, b=k):
+            ch.events.on_access_unit.append(
+                lambda i, n, au, hdr: aus.setdefault(b, []).append(
+                    (sub_id, bytes(au))))
+        rx.on_audio_channel.append(on_channel)
+    for chunk in chunks:
+        for b, data in enumerate(chunk):
+            ms.push(b, data)
+        while True:
+            res = ms.step()
+            rnd += 1
+            if not res:
+                break
+            frames += [(rnd, b, np.array(bits)) for b, bits in res]
+            fleet.process_frames(res)
+    fleet.flush()
+    return frames, aus
+
+
+def jax_multistream(n, axes):
+    """The JAX MultiStreamDemodulator of n u8 streams with its windows'
+    rows split over a mesh of `axes` (the 'ens' axis)."""
+    from dab_radio_tpu.models.multistream import MultiStreamDemodulator
+    return MultiStreamDemodulator(
+        JDemod(MODE), n, ingest="u8",
+        sharding=NamedSharding(jmesh_of(axes), P("ens")))
