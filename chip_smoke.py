@@ -76,7 +76,22 @@ It exits non-zero, printing no result, when there is no card. Phases:
 13. ber_sweep on the card (phase ber): no lock at 2 dB, clean FIC decodes
    at 14 dB with AWGN, a guard-edge echo and clock drift, each FIC decode
    one fused K1 launch of 4 x 774;
-14. which host native libraries run as shared libraries, a JSON line of the
+14. the monitors (phase monitor), at the main path's width: the RS syndromes
+   of rs_syndromes_device on the card for 4096 random codewords of each
+   code, equal to rs_syndromes_numpy, the gate firing on the corrupted rows
+   only; collect_diagnostics on the card against the CPU on the frame
+   window after 6 frames of the ensemble; tui --plain on the ensemble (18
+   services, state=TRACK, the five sparklines, K1 fused only, one FIC and
+   at most one MSC launch a frame); webmon as a subprocess on the card
+   (--device file --loop -c 9C: the ensemble in /state.json, the four
+   panels of /plot.json, /device.json, /tune answering 403 and 400 and then
+   retuning to 12B, /dashboard.png where matplotlib is present);
+   fleet_serve --port on the fleet path's 16 streams, a client polling
+   /plot.json?stream=1 from before the first round (503, then the plots of
+   stream 1 with no "error"), every access unit byte-exact, one fused
+   launch a round; monitor.main --frames 4 (a PNG where matplotlib is
+   present);
+15. which host native libraries run as shared libraries, a JSON line of the
    kernels, then the last line {"ok": true, "device": {...}}.
 
 Scratch files go to build/chip_smoke/ in the checkout.
@@ -162,6 +177,13 @@ TX_ECHO = (100.0, -6.0)
 # the ber phase: ber_sweep's arguments after -M 1 --cfo 1200 -n 4
 BER_RUNS = [["--snr", "2,14"], ["--snr", "14", "--echo", "240:-3"],
             ["--snr", "14", "--drift-ppm", "1"]]
+# the monitor phase: RS syndromes on this many random codewords of each
+# code; the diagnostics of the window after this many frames; tui --plain
+# over this many frames; every wait on a served page has this deadline
+MONITOR_RS_ROWS = 4096
+MONITOR_DIAG_FRAMES = 6
+MONITOR_TUI_FRAMES = 12
+MONITOR_DEADLINE_S = 90
 # the mesh dry run: 4 rank processes on the one card, one stream in 2 time
 # blocks of 10 frames, 2 subchannels on 2 sub ranks; each may take this long
 MESH_RANKS = 4
@@ -844,11 +866,12 @@ def _check_streams(lines, scrape, sent_of_stream):
     return nb_aus
 
 
-def fleet_path(dev, paths, sents, viterbi="exact"):
+def fleet_path(dev, paths, sents, viterbi="exact", port=0):
     """fleet_serve on 16 streams of the 18-service ensemble, 8 frames a
     round: every access unit byte-exact, one Viterbi launch a round: the
     fused kernel on 9,728 messages of 1,542 steps, or with viterbi "tiled"
-    the windowed one on their 126,464 windows of 320."""
+    the windowed one on their 126,464 windows of 320. A port other than 0
+    serves the status pages there (--port)."""
     tag = "fleet path" if viterbi == "exact" else f"fleet path ({viterbi})"
     scrape = os.path.join(WORK, f"fleet_scrape_{viterbi}")
     shutil.rmtree(scrape, ignore_errors=True)
@@ -857,6 +880,9 @@ def fleet_path(dev, paths, sents, viterbi="exact"):
     argv = ["-i", *[paths[k] for k in order], "--subchannels", layout,
             "--frames-per-step", str(FLEET_K), "--scraper-output", scrape,
             "--viterbi", viterbi, "--backend", "cuda"]
+    if port:
+        argv += ["--port", str(port)]
+        tag += " --port"
     lines, _, timers, launches, by_t, wall = _serve(argv)
     rounds = lines[-1]["rounds"]
     check(rounds == (NB_FRAMES - 1) // FLEET_K, f"{rounds} rounds")
@@ -1578,6 +1604,386 @@ def ber_path(dev):
     return launches
 
 
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _http(base, path, data=None, headers=None, timeout=30):
+    """(status, body bytes) of a GET (or a POST of data) to base + path."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(base + path, data=data, headers=headers or {},
+                                 method="GET" if data is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, b""
+
+
+def _wait_json(base, path, cond, proc=None, what=""):
+    """The JSON at base + path once cond(it) holds; fails after
+    MONITOR_DEADLINE_S, or as soon as proc has ended."""
+    import urllib.error
+    deadline = time.time() + MONITOR_DEADLINE_S
+    got = None
+    while time.time() < deadline:
+        check(proc is None or proc.poll() is None,
+              f"{what}: the process ended with {proc and proc.poll()}")
+        try:
+            status, body = _http(base, path, timeout=5)
+            if status == 200:
+                got = json.loads(body)
+                if cond(got):
+                    return got
+        except (urllib.error.URLError, ConnectionError, OSError):
+            pass
+        time.sleep(0.1)
+    raise RuntimeError(f"chip_smoke: {what}: no answer by the deadline; "
+                       f"last {str(got)[:300]}")
+
+
+def _check_plot(plot, what):
+    """The four panels of a /plot.json payload: at least 128 finite points
+    each, a constellation of mean radius above 0.3, no "error"."""
+    check("error" not in plot, f"{what}: {plot.get('error')}")
+    for k in ("impulse_db", "freq_response_db", "spectrum_db"):
+        check(len(plot.get(k, ())) >= 128 and np.isfinite(plot[k]).all(),
+              f"{what}: panel {k}")
+    con = np.asarray(plot.get("constellation", []), np.float64)
+    check(con.ndim == 2 and con.shape[0] >= 128 and np.isfinite(con).all(),
+          f"{what}: constellation of shape {con.shape}")
+    radius = float(np.hypot(con[:, 0], con[:, 1]).mean())
+    check(radius > 0.3, f"{what}: constellation mean radius {radius}")
+    return radius
+
+
+def _monitor_rs(dev):
+    """rs_syndromes_device on the card for MONITOR_RS_ROWS random codewords
+    of each code against rs_syndromes_numpy, exact; the gate fires on the
+    encoded rows with a corrupted byte and on no other."""
+    import torch
+    from dab_radio_tpu_torch.ops import rs
+    rng = np.random.default_rng(SEED)
+    for nroots, pad in ((10, 135), (16, 51)):
+        n = 255 - pad
+        cw = rng.integers(0, 256, (MONITOR_RS_ROWS, n)).astype(np.uint8)
+        x = torch.from_numpy(cw).to(dev)
+        got = rs.rs_syndromes_device(x, nroots, pad)
+        check(got.device == x.device and got.dtype == torch.uint8
+              and tuple(got.shape) == (MONITOR_RS_ROWS, nroots),
+              f"RS({n}): syndromes {got.dtype} {tuple(got.shape)} on "
+              f"{got.device}")
+        check(np.array_equal(got.cpu().numpy(),
+                             rs.rs_syndromes_numpy(cw, nroots, pad)),
+              f"RS({n}): the card's syndromes differ from numpy's")
+        enc = rs.rs_encode(cw[:, :n - nroots], nroots, pad)
+        bad = enc.copy()
+        rows = [3, 1000, MONITOR_RS_ROWS - 1]
+        bad[3, 7] ^= 0x55
+        bad[1000, 0] ^= 0x80
+        bad[MONITOR_RS_ROWS - 1, n - 1] ^= 0x01
+        clean = rs.rs_syndromes_device(torch.from_numpy(enc).to(dev), nroots,
+                                       pad).any(-1)
+        fired = rs.rs_syndromes_device(torch.from_numpy(bad).to(dev), nroots,
+                                       pad).any(-1)
+        check(not bool(clean.any()) and torch.nonzero(fired).flatten()
+              .tolist() == rows, f"RS({n}): the gate fired on "
+              f"{torch.nonzero(fired).flatten().tolist()}, not {rows}")
+        ms = _cuda_ms(lambda: rs.rs_syndromes_device(x, nroots, pad), 20)
+        log(f"monitor: rs_syndromes_device RS({n},{n - nroots}) on "
+            f"{MONITOR_RS_ROWS} codewords equal to rs_syndromes_numpy "
+            f"(exact), gate on rows {rows} only; {ms:.4f} ms between CUDA "
+            f"events")
+
+
+def _monitor_diagnostics(dev, capture):
+    """collect_diagnostics on the card against its run on the CPU, on the
+    last_window of a StreamingDemodulator that ran MONITOR_DIAG_FRAMES
+    frames of the capture on the card."""
+    from types import SimpleNamespace
+    from dab_radio_tpu_torch.apps import monitor
+    from dab_radio_tpu_torch.host.native import iq_convert
+    from dab_radio_tpu_torch.models.demodulator import (OFDMDemodulator,
+                                                        StreamingDemodulator)
+    demod = OFDMDemodulator(1, device=dev)
+    sd = StreamingDemodulator(demod)
+    nb = 0
+    with open(capture, "rb") as f:
+        while nb < MONITOR_DIAG_FRAMES:
+            raw = f.read(1 << 19)
+            check(raw, f"fewer than {MONITOR_DIAG_FRAMES} frames locked")
+            nb += len(sd.process(iq_convert(raw, "u8")))
+    c = sd.carry
+    carry = SimpleNamespace(freq_coarse=float(c.freq_coarse),
+                            freq_fine=float(c.freq_fine))
+    window = sd.last_window
+    gpu, ms = _events_ms(lambda: monitor.collect_diagnostics(demod, window,
+                                                             carry))
+    cpu = monitor.collect_diagnostics(OFDMDemodulator(1, device="cpu"), window,
+                                      carry)
+    errs = {}
+    for k in ("impulse_db", "freq_response_db", "spectrum_db"):
+        a, b = (10.0 ** (np.asarray(d[k], np.float64) / 20.0)
+                for d in (cpu, gpu))
+        errs[k] = float(np.abs(a - b).max() / a.max())
+        check(gpu[k].dtype == np.float32 and errs[k] <= 1e-4,
+              f"diagnostics {k}: {errs[k]} of the max")
+    con = cpu["constellation"]
+    errs["constellation"] = float(np.abs(gpu["constellation"] - con).max()
+                                  / np.abs(con).mean())
+    check(errs["constellation"] <= 1e-4,
+          f"diagnostics constellation: {errs['constellation']} of the mean")
+    d = np.abs(gpu["bits"].astype(np.int32) - cpu["bits"].astype(np.int32))
+    errs["bits_max"], errs["bits_off"] = int(d.max()), float((d > 0).mean())
+    check(d.max() <= 1 and (d > 0).mean() <= 1e-4,
+          f"diagnostics bits: {errs['bits_off']} off, by up to {d.max()}")
+    errs["mer_db"] = abs(gpu["mer_db"] - cpu["mer_db"])
+    check(errs["mer_db"] <= 0.05 and gpu["mer_db"] > 10.0,
+          f"diagnostics MER {gpu['mer_db']} dB on the card, "
+          f"{cpu['mer_db']} dB on the CPU")
+    est = monitor.estimate_mer_db(demod, window)
+    log(f"monitor: collect_diagnostics on the card against the CPU after "
+        f"{nb} frames: " + json.dumps({k: float(f"{v:.3g}") for k, v in
+                                       errs.items()})
+        + f" (limits 1e-4, 1e-4, 1 LSB on 1e-4, 0.05 dB); mer_db "
+        f"{gpu['mer_db']:.2f} dB, estimate_mer_db {est:.2f} dB; "
+        f"{ms:.3f} ms between CUDA events (fetches included)")
+    return gpu, sd.carry
+
+
+def _monitor_tui(capture):
+    """tui --plain in this process on the capture: the dashboard's markers,
+    and K1's launches (fused only: one FIC and one MSC decode a frame)."""
+    import contextlib
+    import io
+    from dab_radio_tpu_torch.apps import tui
+    from dab_radio_tpu_torch.kernels import viterbi_acs as K
+    out = io.StringIO()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = tui.main(["-i", capture, "-F", "u8", "--plain", "--max-frames",
+                       str(MONITOR_TUI_FRAMES), "--backend", "cuda"])
+    wall = time.perf_counter() - t0
+    launches, by_t = dict(K.LAUNCHES), dict(K.ACS_LAUNCHES_BY_T)
+    check(rc == 0, f"tui returned {rc}")
+    text = out.getvalue()
+    last = text[text.rindex("DAB-Radio TPU"):]
+    frames = int(re.search(r"mode I\s+(\d+) frames", last).group(1))
+    missing = [m for m in ["state=TRACK", "aus=", "constellation",
+                           "fine-time impulse", "coarse-freq corr",
+                           "null symbol PSD", "data symbol PSD",
+                           "sampling buffer"]
+               + [f"'Radio TPU {i + 1} " for i in range(NB_SERVICES)]
+               if m not in last]
+    check(not missing and frames == MONITOR_TUI_FRAMES,
+          f"tui: {frames} frames, missing {missing}")
+    check(set(by_t) == {774, 1542} and by_t[774] == frames
+          and 0 < by_t[1542] <= frames
+          and launches == launched(viterbi_decode_fused=sum(by_t.values())),
+          f"tui launches {launches} by T {by_t} over {frames} frames")
+    log(f"monitor: tui --plain: {frames} frames, {NB_SERVICES} services, "
+        f"state=TRACK, 5 sparklines; K1 {launches} by T {by_t}; "
+        f"wall {wall:.3f} s")
+    return launches
+
+
+def _start_webmon(capture):
+    """webmon on the card as a subprocess on a free port: (process, base
+    URL, stderr path)."""
+    port = _free_port()
+    err = os.path.join(WORK, "webmon.err")
+    with open(err, "wb") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dab_radio_tpu_torch.apps.webmon", "-i",
+             capture, "-F", "u8", "--port", str(port), "--device", "file",
+             "--loop", "-c", "9C", "--backend", "cuda"],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+            stdout=subprocess.DEVNULL, stderr=f)
+    return proc, f"http://127.0.0.1:{port}", err
+
+
+def _monitor_webmon(proc, base, has_mpl):
+    """The served pages of webmon: the ensemble, the plots, the tuner and
+    a retune, the dashboard PNG where matplotlib is present."""
+    def ensemble(frames):
+        return lambda s: s.get("ensemble", {}).get("id") == "C0FE" \
+            and len(s.get("services", [])) == NB_SERVICES \
+            and s.get("frames", 0) >= frames
+    t0 = time.perf_counter()
+    state = _wait_json(base, "/state.json", ensemble(6), proc, "webmon")
+    t_found = time.perf_counter() - t0
+    status, body = _http(base, "/plot.json", timeout=60)
+    check(status == 200, f"webmon /plot.json answered {status}")
+    radius = _check_plot(json.loads(body), "webmon /plot.json")
+    status, body = _http(base, "/device.json")
+    dev = json.loads(body)
+    check((dev["device"], dev["channel"], dev["freq_hz"])
+          == ("FileDevice", "9C", 206352000), f"webmon /device.json {dev}")
+    tune = b'{"channel": "12B"}'
+    foreign = _http(base, "/tune", tune, {"Origin": "http://evil.example"})[0]
+    unknown = _http(base, "/tune", b'{"channel": "99Z"}')[0]
+    check((foreign, unknown) == (403, 400),
+          f"webmon /tune: {foreign} for a foreign Origin, {unknown} for 99Z")
+    status, body = _http(base, "/tune", tune)
+    tuned = json.loads(body) if status == 200 else {}
+    check(status == 200 and (tuned["channel"], tuned["freq_hz"])
+          == ("12B", 225648000), f"webmon /tune 12B: {status} {tuned}")
+    t0 = time.perf_counter()
+    _wait_json(base, "/state.json", ensemble(4), proc, "webmon after 12B")
+    t_refound = time.perf_counter() - t0
+    if has_mpl:
+        status, png = _http(base, "/dashboard.png", timeout=60)
+        check(status == 200 and png[:4] == b"\x89PNG" and len(png) > 10_000,
+              f"webmon /dashboard.png: {status}, {len(png)} bytes")
+        dash = f"/dashboard.png {len(png)} bytes"
+    else:
+        dash = ("/dashboard.png not asked: matplotlib is absent (it draws "
+                "the PNG)")
+    log(f"monitor: webmon on the card: ensemble C0FE, {NB_SERVICES} services, "
+        f"{state['frames']} frames after {t_found:.2f} s; /plot.json four "
+        f"panels, constellation mean radius {radius:.3f}; /device.json "
+        f"FileDevice 9C 206352000; /tune 403 (foreign Origin), 400 (99Z), "
+        f"12B re-found after {t_refound:.2f} s; {dash}")
+
+
+def _monitor_fleet(dev, paths, sents):
+    """fleet_path with --port: a client polls /plot.json?stream=1 from
+    before the first round until it gets a 200 (503 before, then the plots
+    of stream 1 with no "error")."""
+    import threading
+    from dab_radio_tpu_torch.models.fused_fleet import FusedFleet
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    answered, done, polled = threading.Event(), threading.Event(), {}
+
+    def poll():
+        deadline = time.time() + MONITOR_DEADLINE_S
+        while not done.is_set() and time.time() < deadline:
+            try:
+                status, body = _http(base, "/plot.json?stream=1", timeout=5)
+                polled.setdefault("first", status)
+                answered.set()
+                if status == 200:
+                    polled["plot"] = json.loads(body)
+                    return
+            except OSError:
+                pass
+            time.sleep(0.02)
+
+    process_round = FusedFleet.process_round
+
+    def gated(fleet, *a, **kw):
+        # the plot is built after a round that follows a request: hold the
+        # first round until the poll has been answered once
+        if fleet.total_rounds == 0:
+            check(answered.wait(MONITOR_DEADLINE_S),
+                  "fleet_serve --port: /plot.json never answered")
+        return process_round(fleet, *a, **kw)
+
+    th = threading.Thread(target=poll, daemon=True)
+    th.start()
+    FusedFleet.process_round = gated
+    try:
+        launches = fleet_path(dev, paths, sents, port=port)
+    finally:
+        FusedFleet.process_round = process_round
+        done.set()
+        th.join(timeout=10)
+    check(not th.is_alive(), "the /plot.json poll did not end")
+    plot = polled.get("plot")
+    check(polled.get("first") == 503 and plot is not None,
+          f"fleet_serve /plot.json: first answer {polled.get('first')}, "
+          f"then {'a payload' if plot else 'none'}")
+    check(plot.get("stream") == 1 and plot.get("rounds", 0) >= 1,
+          f"fleet_serve /plot.json: stream {plot.get('stream')}, rounds "
+          f"{plot.get('rounds')}")
+    radius = _check_plot(plot, "fleet_serve /plot.json")
+    log(f"monitor: fleet_serve --port: /plot.json?stream=1 answered 503 "
+        f"first, then stream 1 after round {plot['rounds']}: four panels, "
+        f"mer_db {plot.get('mer_db')}, constellation mean radius "
+        f"{radius:.3f}, no error")
+    return launches
+
+
+def _monitor_main(capture, has_mpl):
+    """monitor.main --frames 4 on the capture: rc 0, and a PNG where
+    matplotlib is present (without it the diagnostics are checked and no
+    PNG is drawn)."""
+    from dab_radio_tpu_torch.apps import monitor
+    png = os.path.join(WORK, "monitor.png")
+    if os.path.exists(png):
+        os.remove(png)
+    drawn = []
+    render = monitor.render_dashboard
+    if not has_mpl:
+        monitor.render_dashboard = lambda diag, carry, out: drawn.append(diag)
+    try:
+        rc, _ = _run_capturing_stderr(lambda: monitor.main(
+            ["-i", capture, "--frames", "4", "-o", png, "--backend", "cuda"]),
+            echo=False)
+    finally:
+        monitor.render_dashboard = render
+    check(rc == 0, f"monitor returned {rc}")
+    if has_mpl:
+        size = os.path.getsize(png) if os.path.exists(png) else 0
+        check(size > 10_000, f"monitor's PNG has {size} bytes")
+        log(f"monitor: monitor.main --frames 4: rc 0, PNG {size} bytes")
+    else:
+        check(len(drawn) == 1 and not os.path.exists(png)
+              and all(np.isfinite(drawn[0][k]).all() for k in
+                      ("impulse_db", "freq_response_db", "spectrum_db")),
+              "monitor: the diagnostics it would draw")
+        log("monitor: monitor.main --frames 4: rc 0; no PNG: matplotlib is "
+            "absent (the diagnostics it would draw are finite)")
+
+
+def monitor_path(dev, paths, sents):
+    """Phase monitor, at the main path's width (the 18-service capture
+    paths[0], the fleet's 16 streams): rs_syndromes_device on the card;
+    collect_diagnostics on the card against the CPU; tui --plain in
+    process (K1 counted); webmon as a subprocess on the card (started
+    first, so that its start overlaps the in-process checks); fleet_serve
+    --port with a /plot.json poll; monitor.main. Returns the K1 launches of
+    tui and of fleet_serve."""
+    import importlib.util
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    log(f"monitor: matplotlib {'present' if has_mpl else 'absent'}")
+    split = {}
+
+    def part(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        split[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    proc, base, err = _start_webmon(paths[0])
+    try:
+        part("rs", _monitor_rs, dev)
+        part("diagnostics", _monitor_diagnostics, dev, paths[0])
+        tui_launches = part("tui", _monitor_tui, paths[0])
+        part("webmon", _monitor_webmon, proc, base, has_mpl)
+    except Exception:
+        with open(err, "rb") as f:
+            sys.stderr.write(f.read()[-3000:].decode(errors="replace"))
+        raise
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=10)
+    fleet_launches = part("fleet_serve", _monitor_fleet, dev, paths, sents)
+    part("monitor", _monitor_main, paths[0], has_mpl)
+    log("monitor: split s = " + json.dumps(split))
+    return {k: tui_launches[k] + fleet_launches[k] for k in tui_launches}
+
+
 def _device_profile(tp, wall_s):
     """(device time ms, busy share of wall_s, top 12 kernels) of a finished
     torch.profiler run."""
@@ -1772,7 +2178,8 @@ def main():
                 "batched": phase("batched", batched_path, dev, paths, sents),
                 "mesh": phase("mesh", mesh_path, dev, paths, sents),
                 "tx": phase("tx", tx_path, dev),
-                "ber": phase("ber", ber_path, dev)}
+                "ber": phase("ber", ber_path, dev),
+                "monitor": phase("monitor", monitor_path, dev, paths, sents)}
     log("phases: " + ", ".join(f"{n} {t:.2f} s" for n, t in phases))
     from dab_radio_tpu_torch.host.native import native_status
     log("host native libraries: " + ", ".join(

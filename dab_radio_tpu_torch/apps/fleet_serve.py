@@ -19,14 +19,15 @@ Usage:
 `-i -` decodes a LIVE stream from stdin (the reference's pipe topology)
 with constant memory: one round + tail buffered.
 
-Prints one JSON summary line per stream plus a fleet total. Not ported yet:
-the live OFDM plots (/plot.json answers 404).
+Prints one JSON summary line per stream plus a fleet total. With --port,
+/state.json serves the live status and /plot.json one stream's OFDM plots.
 """
 
 import argparse
 import json
 import pickle
 import sys
+import time
 
 import numpy as np
 
@@ -126,23 +127,48 @@ def _discover(iq: np.ndarray, mode: int, device, max_frames: int = 8):
 def _start_status_server(port: int):
     """Serving observability: a daemon-thread HTTP server exposing
     /state.json (per-stream ensembles/services + fleet totals), rebuilt
-    by the serving loop after every round. The handler only ever reads
-    a prebuilt bytes blob, so there is no cross-thread fleet access.
-    Every other path but / answers 404 (so does /plot.json: the live
-    plots are not ported)."""
+    by the serving loop after every round, and /plot.json?stream=K (one
+    stream's OFDM plots, built by _maybe_build_plot after a round that
+    follows a request; 503 with Retry-After until the first build). The
+    handler only ever reads prebuilt bytes blobs, so there is no
+    cross-thread fleet access."""
     import threading
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-    box = {"json": b"{}"}
+    box = {"json": b"{}", "plot": None, "plot_wanted": 0.0,
+           "plot_built": 0.0, "plot_stream": 0}
     page = (b"<!doctype html><title>fleet_serve</title>"
             b"<body style='background:#111;color:#ddd;font-family:monospace'>"
             b"<h3>fleet_serve live status</h3>"
+            b"stream <input id=k value=0 size=3>"
+            b"<div><canvas id=p_imp width=440 height=140></canvas>"
+            b"<canvas id=p_spec width=440 height=140></canvas>"
+            b"<canvas id=p_con width=280 height=140></canvas></div>"
             b"<pre id=s>loading...</pre>"
             b"<script>"
+            b"function line(id,d){const cv=document.getElementById(id),"
+            b"ctx=cv.getContext('2d');ctx.fillStyle='#181818';"
+            b"ctx.fillRect(0,0,cv.width,cv.height);if(!d||!d.length)return;"
+            b"let lo=Math.min(...d),hi=Math.max(...d);if(hi-lo<1e-6)hi=lo+1;"
+            b"ctx.strokeStyle='#6cf';ctx.beginPath();"
+            b"for(let i=0;i<d.length;i++){const x=i/(d.length-1)*cv.width;"
+            b"const y=cv.height-2-(d[i]-lo)/(hi-lo)*(cv.height-4);"
+            b"i?ctx.lineTo(x,y):ctx.moveTo(x,y)}ctx.stroke()}"
+            b"function sc(id,p){const cv=document.getElementById(id),"
+            b"ctx=cv.getContext('2d');ctx.fillStyle='#181818';"
+            b"ctx.fillRect(0,0,cv.width,cv.height);ctx.fillStyle='#fc6';"
+            b"for(const[re,im]of(p||[])){const x=cv.width/2+re*cv.width/5;"
+            b"const y=cv.height/2-im*cv.height/5;"
+            b"if(x>=0&&x<cv.width&&y>=0&&y<cv.height)ctx.fillRect(x,y,2,2)}}"
             b"async function t(){const r=await fetch('/state.json');"
             b"document.getElementById('s').textContent="
             b"JSON.stringify(await r.json(),null,2)}"
-            b"t();setInterval(t,2000)</script>")
+            b"async function pl(){try{const k=document.getElementById('k')"
+            b".value|0;const r=await fetch('/plot.json?stream='+k);"
+            b"if(r.ok){const j=await r.json();line('p_imp',j.impulse_db);"
+            b"line('p_spec',j.spectrum_db);sc('p_con',j.constellation)}}"
+            b"catch(e){}setTimeout(pl,1000)}"
+            b"t();setInterval(t,2000);pl()</script>")
 
     class Handler(BaseHTTPRequestHandler):
         def do_GET(self):
@@ -151,6 +177,26 @@ def _start_status_server(port: int):
                 body, ctype = page, "text/html"
             elif path == "/state.json":
                 body, ctype = box["json"], "application/json"
+            elif path == "/plot.json":
+                # lazy: the serving loop only computes plot payloads
+                # while someone is actually watching (it costs one
+                # frame's diagnostics on the device a round)
+                try:
+                    q = self.path.split("?", 1)[1] if "?" in self.path \
+                        else ""
+                    for kv in q.split("&"):
+                        if kv.startswith("stream="):
+                            box["plot_stream"] = max(int(kv[7:]), 0)
+                except ValueError:
+                    pass
+                box["plot_wanted"] = time.time()
+                blob = box["plot"]
+                if blob is None:
+                    self.send_response(503)
+                    self.send_header("Retry-After", "1")
+                    self.end_headers()
+                    return
+                body, ctype = blob, "application/json"
             else:
                 self.send_response(404)
                 self.end_headers()
@@ -176,6 +222,49 @@ def _start_status_server(port: int):
         return None, None
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     return srv, box
+
+
+def _maybe_build_plot(fleet, box, blk_u8):
+    """Serve-side live plots (webmon /plot.json parity for the fused
+    path): when a browser asked for /plot.json since the last build,
+    recompute one frame's OFDM diagnostics for the requested stream from
+    the round block just fed to the device, on the fleet's device.
+    blk_u8: (N, round_bytes) or (round_bytes,) uint8, host or a tensor the
+    feeder staged. Lazy by design: zero cost while nobody is watching."""
+    if box is None or box["plot_wanted"] <= box["plot_built"]:
+        return
+    try:
+        import torch
+        from .monitor import collect_diagnostics, plot_payload
+        from ..host.native import iq_convert
+        from ..models.demodulator import OFDMDemodulator
+        from types import SimpleNamespace
+        k = min(box["plot_stream"], fleet.N - 1)
+        row = blk_u8 if blk_u8.ndim == 1 else blk_u8[k]
+        if not hasattr(fleet, "_plot_demod"):
+            fleet._plot_demod = OFDMDemodulator(fleet._mode,
+                                                device=fleet.device)
+        d = fleet._plot_demod
+        need = 2 * d.window_len
+        if row.shape[0] < need:
+            return
+        row = row[:need]
+        if torch.is_tensor(row):          # a round staged by the feeder
+            row = row.cpu().numpy()
+        window = iq_convert(np.ascontiguousarray(row).tobytes(),
+                            "u8")[:d.window_len]
+        # the carry lives on the fleet's device: fetch it through the host
+        fc = fleet._carry.freq_coarse.cpu().numpy().reshape(fleet.N, -1)
+        ff = fleet._carry.freq_fine.cpu().numpy().reshape(fleet.N, -1)
+        carry = SimpleNamespace(freq_coarse=float(fc[k, 0]),
+                                freq_fine=float(ff[k, 0]))
+        out = plot_payload(collect_diagnostics(d, window, carry))
+        out["stream"] = int(k)
+        out["rounds"] = int(fleet.total_rounds)
+        box["plot"] = json.dumps(out).encode()
+    except Exception as e:                    # plots must never kill serving
+        box["plot"] = json.dumps({"error": str(e)}).encode()
+    box["plot_built"] = time.time()
 
 
 def _stream_rows(fleet):
@@ -477,6 +566,7 @@ def _serve_stream(args, device):
             realign = True
         if box is not None:
             box["json"] = _status_blob(fleet, args, pcm_out)
+            _maybe_build_plot(fleet, box, blk)
         if args.max_rounds and rounds_done >= args.max_rounds:
             break
     return _finish(fleet, args, pcm_out, scraper, srv, box, [off] * N,
@@ -707,6 +797,7 @@ def main(argv=None):
                 restage_feeder()
         if box is not None:
             box["json"] = _status_blob(fleet, args, pcm_out)
+            _maybe_build_plot(fleet, box, blk)
     if feeder is not None:
         feeder.close()
     return _finish(fleet, args, pcm_out, scraper, srv, box, offsets,

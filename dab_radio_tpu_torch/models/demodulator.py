@@ -296,6 +296,9 @@ class StreamingDemodulator:
         self.state = self.ACQUIRE
         self._buf = _StreamBuffer()
         self._l1 = 0.0
+        # the most recent tracked frame window, a host copy of the stream
+        # buffer (diagnostics/GUI hook: apps/monitor.py, tui.py, webmon.py)
+        self.last_window = None
         # frames_per_step > 1 runs K tracking steps per host read
         self.frames_per_step = max(1, frames_per_step)
 
@@ -375,6 +378,7 @@ class StreamingDemodulator:
                     nb_ok = int(valid.sum())
                     for k in range(nb_ok):
                         frames.append(bits[k])
+                    self.last_window = raw[:d.window_len].copy()
                     ptr += int(consumed)
                     if nb_ok < K:
                         self.state = self.ACQUIRE
@@ -385,6 +389,7 @@ class StreamingDemodulator:
                 with profile_scope("demod/frame_step"):
                     raw_window = self._buf.view(ptr, ptr + d.window_len)
                     self.carry, out = d.frame_step(self.carry, raw_window)
+                self.last_window = raw_window.copy()
                 if bool(out["sync_ok"]):
                     frames.append(out["bits"].cpu().numpy())
                     ptr += int(out["offset"]) + d.frame_advance

@@ -13,9 +13,9 @@ Convention: shortened codeword c[0..n-1]; symbol i sits at polynomial power
 n-1-i, so its error locator is X_i = alpha^{n-1-i} (the virtual zero padding
 cancels out of the syndromes).
 
-A copy of ``dab_radio_tpu/ops/rs.py`` without ``rs_syndromes_device``, the
-one function there that is device code: its counterpart is written for torch
-when the RS syndrome gate moves to the card.
+A copy of ``dab_radio_tpu/ops/rs.py``, but for ``rs_syndromes_device``, the
+one function there that is device code: here it takes a torch tensor and
+computes on the tensor's device.
 """
 
 import functools
@@ -311,10 +311,9 @@ def rs_encode(msg: np.ndarray, nroots: int, pad: int) -> np.ndarray:
 #   S_j = XOR_i c_i * alpha^{j*(n-1-i)}
 # is one fixed binary matrix applied to the codeword bits: a single
 # (B, n*8) @ (n*8, t*8) matmul (exact in f32 — column sums < 2^24) followed
-# by a parity reduction. The device function built on this matrix,
-# rs_syndromes_device of dab_radio_tpu/ops/rs.py, is not copied here: it is
-# device code and is written for torch when the RS syndrome gate moves to
-# the card. The matrix and the NumPy syndromes below are its host side.
+# by a parity reduction. So the normal case (clean codeword, all syndromes
+# zero) costs one matmul on the device (rs_syndromes_device); only rows
+# whose syndrome gate fires need the host Berlekamp-Massey/Forney tail.
 # Matches the reference's decode loop entry (reed_solomon_decoder.cpp) which
 # always runs the full scalar syndrome loop per codeword on CPU.
 
@@ -334,6 +333,29 @@ def syndrome_bit_matrix(nroots: int, pad: int) -> np.ndarray:
                 for ob in range(8):
                     M[i * 8 + b, j * 8 + ob] = (prod >> (7 - ob)) & 1
     return M
+
+
+def rs_syndromes_device(codewords, nroots: int, pad: int):
+    """Syndromes on the device of `codewords`: (..., n) uint8 tensor ->
+    (..., nroots) uint8 tensor on the same device. Use `.any(-1)` as the
+    corruption gate; equality with rs_syndromes_numpy is tested.
+
+    The product is float32: CUDA has no int32 matmul, the column sums stay
+    below 2^24, and 0/1 inputs are exact even under TF32."""
+    import torch
+    n = 255 - pad
+    dev = codewords.device
+    M = torch.as_tensor(syndrome_bit_matrix(nroots, pad),
+                        dtype=torch.float32, device=dev)
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=dev)
+    bits = (codewords[..., :, None].to(torch.uint8) >> shifts) & 1
+    bits = bits.reshape(*codewords.shape[:-1], n * 8).to(torch.float32)
+    syn_bits = (bits @ M).to(torch.int32) & 1
+    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32,
+                           device=dev)
+    syn = (syn_bits.reshape(*codewords.shape[:-1], nroots, 8)
+           * weights).sum(dim=-1)
+    return syn.to(torch.uint8)
 
 
 def rs_syndromes_numpy(codewords: np.ndarray, nroots: int, pad: int):

@@ -256,8 +256,9 @@ def _free_port():
 
 
 def test_status_port_serves_state_json(caps, capsys, monkeypatch):
-    """--port: /state.json while a live stream is being served; /plot.json
-    is not ported and answers 404."""
+    """--port: /state.json while a live stream is being served, and
+    /plot.json?stream=1: 503 with Retry-After until a round after the first
+    request has built the plot, then stream 1's OFDM plots."""
     port = _free_port()
     rfd, wfd = os.pipe()
     monkeypatch.setattr(sys, "stdin", types.SimpleNamespace(
@@ -270,32 +271,61 @@ def test_status_port_serves_state_json(caps, capsys, monkeypatch):
     capsys.readouterr()
     th.start()
     data = caps.arrays[0].tobytes()
-    state = None
+    base = f"http://127.0.0.1:{port}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=5) as r:
+            return json.loads(r.read())
+
+    state = plot = None
     with os.fdopen(wfd, "wb") as w:
-        w.write(data)                 # the pipe stays open: still "live"
+        # the stream head (12 frames) and 2 rounds, then ask for a plot
+        # before the rest arrives: nothing is built yet
+        head = 2 * 12 * FS + 2 * 2 * 4 * FS
+        w.write(data[:head])
         w.flush()
         deadline = time.time() + 60
+        first = None
+        while first is None and time.time() < deadline:
+            try:
+                urllib.request.urlopen(base + "/plot.json?stream=1",
+                                       timeout=5)
+                first = 200
+            except urllib.error.HTTPError as e:
+                first = e.code
+                assert e.headers["Retry-After"] == "1"
+            except (urllib.error.URLError, ConnectionError):
+                time.sleep(0.1)
+        assert first == 503
+        w.write(data[head:])          # the pipe stays open: still "live"
+        w.flush()
         while time.time() < deadline:
             try:
-                with urllib.request.urlopen(
-                        f"http://127.0.0.1:{port}/state.json", timeout=5) as r:
-                    state = json.loads(r.read())
+                if plot is None:
+                    plot = get("/plot.json?stream=1")
+                state = get("/state.json")
                 if state.get("totals", {}).get("rounds", 0) >= 8:
                     break
+            except urllib.error.HTTPError as e:
+                assert e.code == 503
             except (urllib.error.URLError, ConnectionError):
                 pass
             time.sleep(0.2)
-        with pytest.raises(urllib.error.HTTPError) as e:
-            urllib.request.urlopen(f"http://127.0.0.1:{port}/plot.json",
-                                   timeout=5)
-        assert e.value.code == 404
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/",
                                     timeout=5) as r:
-            assert b"fleet_serve live status" in r.read()
+            page = r.read()
+            assert b"fleet_serve live status" in page
+            assert b"/plot.json?stream=" in page
     th.join(timeout=60)
     assert not th.is_alive() and result["rc"] == 0
     assert state["totals"]["rounds"] >= 8 and len(state["streams"]) == 2
     assert state["streams"][0]["ensemble"] == "C0FE"
+    assert plot is not None and "error" not in plot
+    assert plot["stream"] == 1 and plot["rounds"] >= 3
+    for k in ("impulse_db", "freq_response_db", "spectrum_db"):
+        assert len(plot[k]) >= 128 and np.isfinite(plot[k]).all(), k
+    con = np.asarray(plot["constellation"], np.float64)
+    assert con.shape[0] >= 256 and np.hypot(con[:, 0], con[:, 1]).mean() > 0.3
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert lines[-1]["rounds"] == 10
     # a taken port loses the live view, not the serving
@@ -360,3 +390,39 @@ def test_parse_subchannels_and_load_u8(tmp_path):
     np.testing.assert_array_equal(
         tserve._load_u8(str(tmp_path / "a.s16"), "s16le"),
         jserve._load_u8(str(tmp_path / "a.s16"), "s16le"))
+
+
+@pytest.mark.parametrize("staged", [False, True])
+def test_round_plot_matches_jax(caps, staged):
+    """_maybe_build_plot on a round block of 2 streams (host numpy, or a
+    tensor as the feeder stages it) and the same carry values: the payload
+    of stream 1 equals the JAX server's within its rounding (0.02 for dB,
+    0.002 for the constellation), and carries no "error"."""
+    u8 = caps.arrays[0]
+    chunk = 8 * FS
+    blk = np.stack([u8[:chunk], u8[3 * FS:3 * FS + chunk]])
+    fc, ff = np.float32([1e-4, 1300.0 / 2.048e6]), np.float32([0.0, 2e-5])
+
+    def plot(mod, carry, rows):
+        fleet = types.SimpleNamespace(N=2, _mode=2, device=torch.device("cpu"),
+                                      _carry=carry, total_rounds=5)
+        box = {"plot": None, "plot_wanted": 1.0, "plot_built": 0.0,
+               "plot_stream": 7}
+        mod._maybe_build_plot(fleet, box, rows)
+        assert box["plot_built"] > 1.0
+        return json.loads(box["plot"])
+
+    want = plot(jserve, types.SimpleNamespace(freq_coarse=fc, freq_fine=ff),
+                blk)
+    got = plot(tserve, types.SimpleNamespace(freq_coarse=torch.from_numpy(fc),
+                                             freq_fine=torch.from_numpy(ff)),
+               torch.from_numpy(blk) if staged else blk)
+    assert "error" not in got and set(got) == set(want)
+    assert got["stream"] == want["stream"] == 1 and got["rounds"] == 5
+    for k in ("impulse_db", "freq_response_db", "spectrum_db"):
+        assert len(got[k]) == len(want[k]) >= 128
+        assert np.abs(np.subtract(got[k], want[k])).max() <= 0.02 + 1e-9, k
+    assert len(got["constellation"]) == len(want["constellation"]) >= 256
+    assert np.abs(np.subtract(got["constellation"],
+                              want["constellation"])).max() <= 0.002 + 1e-9
+    assert abs(got["mer_db"] - want["mer_db"]) <= 0.1 + 1e-9

@@ -32,7 +32,7 @@ COPIED = [
     "host.device", "models.channel", "models.pad_writer",
 ]
 # names one side has and the other rightly lacks
-ONLY_JAX = {"ops.rs": {"rs_syndromes_device"}}
+ONLY_JAX = {}
 ONLY_PORT = {"host.native": {"native_status"}}
 
 

@@ -2,8 +2,9 @@
 interpreter, import every module of the package and run its main path
 (transmitter -> u8 file -> radio_cli, then fleet_serve, each also with the
 decode variants, then MultiStreamDemodulator into ReceiverFleet, then
-simulate_transmitter, ber_sweep and radio_app, on the CPU) for a few
-frames, then check sys.modules; the same in every rank of the
+simulate_transmitter, ber_sweep and radio_app, then the monitors tui,
+monitor and webmon's plot and state, and rs_syndromes_device, on the CPU)
+for a few frames, then check sys.modules; the same in every rank of the
 mesh dry run (``parallel/dryrun.py``, two gloo ranks on the CPU); and no
 source file of the port imports either."""
 
@@ -54,8 +55,10 @@ SCRIPT = textwrap.dedent("""
                              "--frames-per-step", "1", "--viterbi", "tiled",
                              "--chainback", "parallel", "--backend",
                              "cpu"]) == 0
-    from dab_radio_tpu_torch.models.demodulator import OFDMDemodulator
+    from dab_radio_tpu_torch.models.demodulator import (OFDMDemodulator,
+                                                        StreamingDemodulator)
     from dab_radio_tpu_torch.models.fleet import ReceiverFleet
+    from dab_radio_tpu_torch.models.receiver import DabReceiver
     from dab_radio_tpu_torch.models.multistream import MultiStreamDemodulator
     ms = MultiStreamDemodulator(OFDMDemodulator(1, device="cpu"), 1,
                                 ingest="u8", fetch_bits=False, device="cpu")
@@ -76,6 +79,24 @@ SCRIPT = textwrap.dedent("""
     sys.stdout = real
     assert radio_app.main(["--device", "file", "-i", path, "--audio-out", "",
                            "--backend", "cpu"]) == 0
+    from dab_radio_tpu_torch.apps import monitor, tui, webmon
+    from dab_radio_tpu_torch.ops.rs import rs_syndromes_device
+    sys.stdout = io.TextIOWrapper(io.BytesIO())
+    assert tui.main(["-i", path, "--plain", "--backend", "cpu"]) == 0
+    sys.stdout = real
+    assert monitor.main(["-i", path, "--frames", "1", "-o",
+                         path + ".png", "--backend", "cpu"]) == 0
+    st = webmon._State()
+    st.demod = OFDMDemodulator(1, device="cpu")
+    st.sd = StreamingDemodulator(st.demod)
+    st.rx = DabReceiver(1, device="cpu")
+    from dab_radio_tpu_torch.host.native import iq_convert
+    for bits in st.sd.process(iq_convert(open(path, "rb").read(), "u8")):
+        st.rx.process_frame(bits)
+    assert b"impulse_db" in webmon._plot_json(st)
+    assert b"C0FE" in webmon._state_json(st)
+    cw = torch.zeros((2, 120), dtype=torch.uint8)
+    assert not rs_syndromes_device(cw, 10, 135).any()
     assert "jax" not in sys.modules, "the main path loaded jax"
     loaded = [m for m in sys.modules
               if m == "dab_radio_tpu" or m.startswith("dab_radio_tpu.")]
