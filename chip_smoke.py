@@ -91,7 +91,20 @@ It exits non-zero, printing no result, when there is no card. Phases:
    stream 1 with no "error"), every access unit byte-exact, one fused
    launch a round; monitor.main --frames 4 (a PNG where matplotlib is
    present);
-15. which host native libraries run as shared libraries, a JSON line of the
+15. the serving deployment (phase pod): the port's serve_pod with 2
+   fleet_serve workers, each pinned by CUDA_VISIBLE_DEVICES (both to the
+   one card), 16 streams of the ensemble each, 8 frames a round, 3 rounds,
+   --port and --snapshot-dir: rc 0, both workers reporting, each worker's
+   totals equal to one in-process fleet_serve on the same arguments (one
+   fused launch a round), /pod.json never above the final totals, both
+   snapshots loaded on the card with the summaries' counters and valid FIBs
+   on all 32 streams; each worker's round walls;
+16. the serving soak (phase soak): the port's soak on the card, 16 streams
+   of the 18-service ensemble, 8 frames a round, 45 s, a sample every 10 s:
+   ok, host RSS and the card's reserved memory within 0.15 of the first
+   warm sample, access units still arriving at the end, one fused launch a
+   round; the AU rate of each sample;
+17. which host native libraries run as shared libraries, a JSON line of the
    kernels, then the last line {"ok": true, "device": {...}}.
 
 Scratch files go to build/chip_smoke/ in the checkout.
@@ -184,6 +197,22 @@ MONITOR_RS_ROWS = 4096
 MONITOR_DIAG_FRAMES = 6
 MONITOR_TUI_FRAMES = 12
 MONITOR_DEADLINE_S = 90
+# the serving deployment (phase pod): serve_pod with this many fleet_serve
+# workers (all on the one card), the fleet path's streams and layout a
+# worker, this many rounds; the whole pod may take this long
+POD_WORKERS = 2
+POD_ROUNDS = 3
+POD_TIMEOUT_S = 300
+# while the pod serves: each worker's /state.json every POD_POLL_S (round
+# walls to that resolution), /pod.json every POD_VIEW_S
+POD_POLL_S = 0.1
+POD_VIEW_S = 0.5
+# the serving soak (phase soak): FusedFleet over a looped capture of the
+# 18-service ensemble, the fleet path's streams and frames a round, sampled
+# every SOAK_SAMPLE_S; memory may grow by this fraction after warm-up
+SOAK_SECONDS = 45
+SOAK_SAMPLE_S = 10
+SOAK_MAX_GROWTH = 0.15
 # the mesh dry run: 4 rank processes on the one card, one stream in 2 time
 # blocks of 10 frames, 2 subchannels on 2 sub ranks; each may take this long
 MESH_RANKS = 4
@@ -1611,6 +1640,23 @@ def _free_port():
         return sock.getsockname()[1]
 
 
+def _free_ports(n):
+    """A port p with p, ..., p + n - 1 all free on 127.0.0.1."""
+    import socket
+    while True:
+        base = _free_port()
+        socks = [socket.socket() for _ in range(n)]
+        try:
+            for k, sock in enumerate(socks):
+                sock.bind(("127.0.0.1", base + k))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sock in socks:
+                sock.close()
+
+
 def _http(base, path, data=None, headers=None, timeout=30):
     """(status, body bytes) of a GET (or a POST of data) to base + path."""
     import urllib.error
@@ -1984,6 +2030,218 @@ def monitor_path(dev, paths, sents):
     return {k: tui_launches[k] + fleet_launches[k] for k in tui_launches}
 
 
+def _poll_pod(proc, port, base):
+    """While the pod runs: /pod.json's pod counters (every POD_VIEW_S), and
+    the times at which each worker's /state.json first showed each round
+    count (its rounds counter goes up when a round is dispatched; every
+    POD_POLL_S). Each request takes a worker's interpreter lock from its
+    serving loop for a moment, hence the modest rates."""
+    import urllib.error
+    views, seen = [], [{} for _ in range(POD_WORKERS)]
+    deadline = time.time() + POD_TIMEOUT_S
+    next_view = 0.0
+    while proc.poll() is None and time.time() < deadline:
+        for k in range(POD_WORKERS):
+            try:
+                status, body = _http(f"http://127.0.0.1:{base + k}",
+                                     "/state.json", timeout=2)
+                rounds = json.loads(body).get("totals", {}).get("rounds", 0)
+                seen[k].setdefault(rounds, time.perf_counter())
+            except (urllib.error.URLError, ConnectionError, OSError,
+                    ValueError):
+                pass
+        if time.time() >= next_view:
+            next_view = time.time() + POD_VIEW_S
+            try:
+                status, body = _http(f"http://127.0.0.1:{port}", "/pod.json",
+                                     timeout=5)
+                views.append(json.loads(body)["pod"])
+            except (urllib.error.URLError, ConnectionError, OSError,
+                    ValueError):
+                pass
+        time.sleep(POD_POLL_S)
+    return views, seen
+
+
+def pod_path(dev, paths, sents):
+    """Phase pod: the port's serve_pod with 2 fleet_serve workers, each
+    pinned by CUDA_VISIBLE_DEVICES (both to card 0 here), each serving the
+    fleet path's 16 streams of paths[0] (--shared-input) with the 18-entry
+    layout, 8 frames a round, 3 rounds, --port and --snapshot-dir. Checks
+    rc 0 and both workers reporting, each worker's totals against one
+    in-process fleet_serve on the same arguments, /pod.json (polled while
+    serving) never above the workers' final totals, and both snapshots
+    loaded on the card against the summaries. Returns the K1 launches of
+    the in-process run (the workers are other processes: their launches
+    are not counted here)."""
+    import pickle
+    import signal
+    from dab_radio_tpu_torch.models.fused_fleet import FusedFleet
+    layout = ",".join(f"{48 * i}:48:EEP3A" for i in range(NB_SERVICES))
+    args = ["-i", paths[0], "--subchannels", layout, "--frames-per-step",
+            str(FLEET_K), "--max-rounds", str(POD_ROUNDS), "--backend",
+            "cuda"]
+    snaps = os.path.join(WORK, "pod_snapshots")
+    shutil.rmtree(snaps, ignore_errors=True)
+    base, port = _free_ports(POD_WORKERS), _free_port()
+    err = os.path.join(WORK, "pod.err")
+    t0 = time.perf_counter()
+    with open(err, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dab_radio_tpu_torch.tools.serve_pod",
+             "--workers", str(POD_WORKERS), "--streams-per-worker",
+             str(FLEET_STREAMS), "--base-port", str(base), "--port",
+             str(port), "--snapshot-dir", snaps, *args],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+            stdout=subprocess.PIPE, stderr=f, text=True)
+    try:
+        views, seen = _poll_pod(proc, port, base)
+        out, _ = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGINT)   # the pod passes it on
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=10)
+    wall = time.perf_counter() - t0
+    with open(err) as f:
+        err_text = f.read()
+    if proc.returncode != 0:
+        sys.stderr.write(err_text[-3000:])
+    check(proc.returncode == 0, f"serve_pod returned {proc.returncode}")
+    pod = json.loads(out.strip().splitlines()[-1])
+    check(pod["metric"] == "pod_serving"
+          and pod["workers_reporting"] == POD_WORKERS,
+          f"pod: {pod}")
+    import torch
+    name = torch.cuda.get_device_name(0)
+    for k in range(POD_WORKERS):
+        check(f"# worker {k}: pid=" in err_text
+              and re.search(rf"^# worker {k}: .*card 0 \({re.escape(name)},"
+                            r" CUDA_VISIBLE_DEVICES=[^)]+\)$", err_text,
+                            re.M),
+              f"worker {k} not pinned to card 0: {err_text[:600]}")
+    totals = {}
+    for m in re.finditer(r"^# worker (\d+): (\{.*\})$", err_text, re.M):
+        row = json.loads(m.group(2))
+        if "access_units" in row:
+            totals[int(m.group(1))] = row
+    check(sorted(totals) == list(range(POD_WORKERS)),
+          f"worker totals {totals}")
+    # one fleet_serve in this process on the same arguments
+    lines, _, timers, launches, by_t, ref_wall = _serve(
+        args + ["--shared-input", "--streams", str(FLEET_STREAMS)])
+    ref = lines[-1]
+    check(ref["access_units"] > 0 and ref["rounds"] == POD_ROUNDS
+          and all(row["fib_ok"] > 0 for row in lines[:-1]),
+          f"in-process fleet_serve: {ref}, fib_ok "
+          f"{[row['fib_ok'] for row in lines[:-1]]}")
+    check(launches == launched(viterbi_decode_fused=POD_ROUNDS)
+          and by_t == {1542: POD_ROUNDS},
+          f"in-process fleet_serve launches {launches} by T {by_t}")
+    for k, row in totals.items():
+        check(row == ref, f"worker {k} totals {row} against {ref}")
+    for key in ("rounds", "access_units", "streams"):
+        check(pod[key] == POD_WORKERS * ref[key], f"pod {key}: {pod}")
+    check(views, "/pod.json never answered")
+    over = [v for v in views if any(v[key] > pod[key] for key in
+                                    ("rounds", "access_units", "streams"))]
+    check(not over, f"/pod.json above the final totals: {over[:3]}")
+    fib_ok = 0
+    for k in range(POD_WORKERS):
+        with open(os.path.join(snaps, f"worker{k}.snap"), "rb") as f:
+            fleet = FusedFleet.from_snapshot(pickle.load(f)["fleet"], dev)
+        check(fleet.device.type == "cuda" and fleet.N == FLEET_STREAMS
+              and (fleet.total_rounds, fleet.total_aus)
+              == (ref["rounds"], ref["access_units"]),
+              f"worker {k} snapshot: N {fleet.N}, rounds "
+              f"{fleet.total_rounds}, AUs {fleet.total_aus}, against {ref}")
+        check(fleet.summary() == {key: ref[key] for key in fleet.summary()},
+              f"worker {k} snapshot summary {fleet.summary()}")
+        fib_ok += int((np.asarray(fleet.last_fib_ok) > 0).sum())
+    check(fib_ok == POD_WORKERS * FLEET_STREAMS,
+          f"valid FIBs on {fib_ok} of {POD_WORKERS * FLEET_STREAMS} "
+          "streams")
+    air = FLEET_STREAMS * FLEET_K * 0.096
+    walls = []
+    for k in range(POD_WORKERS):
+        t = [seen[k][r] for r in sorted(seen[k]) if r >= 1]
+        walls.append([round(b - a, 4) for a, b in zip(t, t[1:])])
+    log(f"pod: {POD_WORKERS} workers on card 0 ({name}), "
+        f"{FLEET_STREAMS} streams each, {POD_ROUNDS} rounds of {FLEET_K} "
+        f"frames: {pod}; each worker's totals equal the in-process "
+        f"fleet_serve's ({ref['access_units']} AUs, {ref_wall:.3f} s); "
+        f"snapshots loaded on the card, valid FIBs on {fib_ok} streams; "
+        f"/pod.json answered {len(views)} times, at most "
+        f"{max(v['rounds'] for v in views)} rounds, "
+        f"{max(v['access_units'] for v in views)} AUs; pod wall "
+        f"{wall:.3f} s")
+    log(f"pod: per-worker round walls s (between the first sightings of "
+        f"rounds 1, 2, 3 in /state.json, polled every {POD_POLL_S} s) = "
+        + json.dumps(walls) + "; the in-process run's (alone on the card) "
+        "= "
+        + json.dumps([round(x, 4) for x in timers.round_wall_s]))
+    warm = [w[-1] for w in walls if w]
+    if len(warm) == POD_WORKERS:
+        log(f"pod: real-time ensembles a worker (last wall) = "
+            f"{json.dumps([round(air / w, 3) for w in warm])}, the pod "
+            f"{sum(air / w for w in warm):.3f}")
+    return launches
+
+
+def soak_path(dev):
+    """Phase soak: the port's soak on the card, in this process: 16 streams
+    of the 18-service ensemble, 8 frames a round, 45 s, a sample every 10 s;
+    ok, RSS and reserved device memory within 0.15 of the first warm sample,
+    access units still arriving in the last window, and one fused K1
+    launch a round."""
+    import contextlib
+    import io
+    import tempfile
+    from dab_radio_tpu_torch.kernels import viterbi_acs as K
+    from dab_radio_tpu_torch.tools import soak
+    out = io.StringIO()
+    saved = tempfile.tempdir
+    tempfile.tempdir = WORK               # the soak's capture is kept there
+    K.reset_launches()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = soak.main(["--seconds", str(SOAK_SECONDS), "--sample-s",
+                            str(SOAK_SAMPLE_S), "--streams",
+                            str(FLEET_STREAMS), "--services",
+                            str(NB_SERVICES),
+                            "--frames-per-step", str(FLEET_K),
+                            "--max-rss-growth", str(SOAK_MAX_GROWTH),
+                            "--backend", "cuda"])
+    finally:
+        tempfile.tempdir = saved
+    launches, by_t = dict(K.LAUNCHES), dict(K.ACS_LAUNCHES_BY_T)
+    res = json.loads(out.getvalue().strip().splitlines()[-1])
+    check(rc == 0 and res["ok"], f"soak: rc {rc}, {res}")
+    rounds = res["total_rounds"]
+    reserved = res.get("cuda_reserved_growth")
+    check(res["rss_growth"] <= SOAK_MAX_GROWTH and reserved is not None
+          and reserved <= SOAK_MAX_GROWTH
+          and res["samples"][-1]["au_rate"] > 0,
+          f"soak: RSS growth {res['rss_growth']}, reserved growth "
+          f"{reserved}, last AU rate {res['samples'][-1]['au_rate']}")
+    check(launches == launched(viterbi_decode_fused=rounds)
+          and by_t == {1542: rounds},
+          f"soak: {rounds} rounds, launches {launches} by T {by_t}")
+    log(f"soak: {res['seconds']} s, {FLEET_STREAMS} streams x {FLEET_K} "
+        f"frames a round: rounds={rounds} access_units={res['total_aus']} "
+        f"rss_growth={res['rss_growth']} "
+        f"cuda_reserved_growth={reserved} "
+        f"launches={launches}")
+    for x in res["samples"]:
+        log("soak: sample " + json.dumps(x))
+    log("soak: AU rate a sample = "
+        + json.dumps([x["au_rate"] for x in res["samples"]]))
+    return launches
+
+
 def _device_profile(tp, wall_s):
     """(device time ms, busy share of wall_s, top 12 kernels) of a finished
     torch.profiler run."""
@@ -2179,7 +2437,9 @@ def main():
                 "mesh": phase("mesh", mesh_path, dev, paths, sents),
                 "tx": phase("tx", tx_path, dev),
                 "ber": phase("ber", ber_path, dev),
-                "monitor": phase("monitor", monitor_path, dev, paths, sents)}
+                "monitor": phase("monitor", monitor_path, dev, paths, sents),
+                "pod": phase("pod", pod_path, dev, paths, sents),
+                "soak": phase("soak", soak_path, dev)}
     log("phases: " + ", ".join(f"{n} {t:.2f} s" for n, t in phases))
     from dab_radio_tpu_torch.host.native import native_status
     log("host native libraries: " + ", ".join(

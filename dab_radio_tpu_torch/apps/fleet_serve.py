@@ -21,12 +21,17 @@ with constant memory: one round + tail buffered.
 
 Prints one JSON summary line per stream plus a fleet total. With --port,
 /state.json serves the live status and /plot.json one stream's OFDM plots.
+SIGINT stops serving at the next round boundary and ends as at the end of
+the input (stream lines, totals, --snapshot-out; exit code 0); a second
+SIGINT ends the process at once.
 """
 
 import argparse
 import json
 import pickle
+import signal
 import sys
+import threading
 import time
 
 import numpy as np
@@ -441,6 +446,40 @@ class _DesyncWatch:
                   file=sys.stderr)
 
 
+class _StopOnSigint:
+    """SIGINT ends serving between rounds. The handler runs in the main
+    thread and only sets a flag, which the serving loop reads at its head
+    (`now`): the round already dispatched is then materialized and consumed
+    by _finish, as at the end of the input. The first SIGINT puts back the
+    default action, so that a second one ends the process at once. The
+    handler that was there before comes back on exit. Outside the main
+    thread, where no handler can be set, SIGINT keeps its handler."""
+
+    def __init__(self):
+        self.requested = False
+        self._saved = None
+
+    def _handle(self, signum, frame):
+        self.requested = True
+        signal.signal(signal.SIGINT, signal.SIG_DFL)
+
+    def __enter__(self):
+        if threading.current_thread() is threading.main_thread():
+            self._saved = signal.signal(signal.SIGINT, self._handle)
+        return self
+
+    def __exit__(self, *exc):
+        if self._saved is not None:
+            signal.signal(signal.SIGINT, self._saved)
+
+    def now(self, rounds_done: int) -> bool:
+        """True once SIGINT came (the loop then stops); says so on stderr."""
+        if self.requested:
+            print(f"# SIGINT: stopping after round {rounds_done} (a second "
+                  "SIGINT ends the process at once)", file=sys.stderr)
+        return self.requested
+
+
 def _finish(fleet, args, pcm_out, scraper, srv, box, offsets,
             anchor=None, pos=None, watch=None) -> int:
     """Common serving epilogue: consume the deferred round, close the
@@ -452,14 +491,8 @@ def _finish(fleet, args, pcm_out, scraper, srv, box, offsets,
         box["json"] = _status_blob(fleet, args, pcm_out)
         srv.shutdown()
         srv.server_close()
-    for row in _stream_rows(fleet):
-        print(json.dumps(row))
-    summ = _totals(fleet, args, pcm_out)
-    if anchor is not None and any(anchor.total):
-        summ["drift_corrected_samples"] = anchor.total
-    if watch is not None and watch.events:
-        summ["resync_events"] = watch.events
-    print(json.dumps(summ))
+    # the checkpoint first: once the totals line is out (the last line, the
+    # one serve_pod reads), the snapshot is on disk
     if args.snapshot_out:
         with open(args.snapshot_out, "wb") as f:
             pickle.dump({"fleet": fleet.snapshot(), "offsets": offsets,
@@ -469,10 +502,18 @@ def _finish(fleet, args, pcm_out, scraper, srv, box, offsets,
                          "watch": None if watch is None
                          else watch.state()}, f)
         print(f"# snapshot written to {args.snapshot_out}", file=sys.stderr)
+    for row in _stream_rows(fleet):
+        print(json.dumps(row))
+    summ = _totals(fleet, args, pcm_out)
+    if anchor is not None and any(anchor.total):
+        summ["drift_corrected_samples"] = anchor.total
+    if watch is not None and watch.events:
+        summ["resync_events"] = watch.events
+    print(json.dumps(summ))
     return 0
 
 
-def _serve_stream(args, device):
+def _serve_stream(args, device, stop):
     """`-i -`: decode a LIVE byte stream from stdin, the reference's
     pipe topology (rtl_sdr | ...) at the fused serving surface. All
     --streams streams decode the one stdin stream. Memory stays at one
@@ -521,6 +562,8 @@ def _serve_stream(args, device):
     rounds_done = 0
     eof = False
     while True:
+        if stop.now(rounds_done):
+            break
         while len(buf) < chunk + tb and not eof:
             data = fin.read(chunk + tb - len(buf))
             if not data:
@@ -643,13 +686,18 @@ def main(argv=None):
     args = ap.parse_args(argv)
     device = apply_backend(args)
 
-    if args.inputs == ["-"]:
-        if args.format != "u8":
-            print("-i - (live stdin) supports u8 only; pipe through "
-                  "an IQ converter for other formats", file=sys.stderr)
-            return 2
-        return _serve_stream(args, device)
+    if args.inputs == ["-"] and args.format != "u8":
+        print("-i - (live stdin) supports u8 only; pipe through "
+              "an IQ converter for other formats", file=sys.stderr)
+        return 2
+    with _StopOnSigint() as stop:
+        if args.inputs == ["-"]:
+            return _serve_stream(args, device, stop)
+        return _serve_files(ap, args, device, stop)
 
+
+def _serve_files(ap, args, device, stop):
+    """File inputs: one file a stream, or one shared by --streams."""
     if args.shared_input:
         if len(args.inputs) != 1 or args.streams <= 0:
             ap.error("--shared-input takes one input file and --streams N")
@@ -751,6 +799,8 @@ def main(argv=None):
     if args.prefetch > 0:
         restage_feeder()
     while True:
+        if stop.now(done):
+            break
         if args.max_rounds and done >= args.max_rounds:
             break
         if args.prefetch > 0:

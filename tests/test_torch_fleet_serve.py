@@ -426,3 +426,72 @@ def test_round_plot_matches_jax(caps, staged):
     assert np.abs(np.subtract(got["constellation"],
                               want["constellation"])).max() <= 0.002 + 1e-9
     assert abs(got["mer_db"] - want["mer_db"]) <= 0.1 + 1e-9
+
+
+def test_sigint_stops_at_a_round_boundary(caps, tmp_path):
+    """SIGINT to fleet_serve fed through `-i -` (a subprocess, its stdin a
+    live pipe that keeps sending): it ends the round it is in, then ends as
+    at the end of the stream: rc 0, the totals line last on stdout, and a
+    --snapshot-out whose counters equal those totals."""
+    import pickle
+    import signal
+    import subprocess
+    from dab_radio_tpu_torch.models.fused_fleet import FusedFleet
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    port, snap = _free_port(), tmp_path / "live.snap"
+    out, err = tmp_path / "out.txt", tmp_path / "err.txt"
+    with open(out, "wb") as fo, open(err, "wb") as fe:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dab_radio_tpu_torch.apps.fleet_serve",
+             "-i", "-", "--streams", "2", "--subchannels", LAYOUT, "--port",
+             str(port), "--snapshot-out", str(snap), *BASE],
+            cwd=root, stdin=subprocess.PIPE, stdout=fo, stderr=fe)
+    data = caps.arrays[0].tobytes()
+
+    def feed():                     # the capture again and again, live
+        try:
+            for _ in range(50):
+                proc.stdin.write(data)
+            proc.stdin.close()
+        except (BrokenPipeError, OSError, ValueError):
+            pass
+    th = threading.Thread(target=feed, daemon=True)
+    th.start()
+    rounds, deadline = 0, time.time() + 120
+    try:
+        while rounds < 2 and time.time() < deadline \
+                and proc.poll() is None:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/state.json",
+                        timeout=5) as r:
+                    rounds = json.loads(r.read()).get(
+                        "totals", {}).get("rounds", 0)
+            except (urllib.error.URLError, ConnectionError, OSError):
+                pass
+            time.sleep(0.1)
+        assert rounds >= 2, "fleet_serve served no rounds"
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    th.join(timeout=10)
+    text = err.read_text()
+    assert rc == 0, text[-2000:]
+    assert "# SIGINT: stopping after round" in text
+    lines = [json.loads(ln) for ln in out.read_text().splitlines()]
+    assert len(lines) == 3 and [r["stream"] for r in lines[:2]] == [0, 1]
+    total = lines[-1]
+    assert "access_units" in total and total["streams"] == 2
+    # stopped long before the 50 captures' end, between two rounds
+    assert 2 <= total["rounds"] < 50 * 10
+    assert total["frames"] == total["rounds"] * 4 * 2
+    with open(snap, "rb") as f:
+        blob = pickle.load(f)
+    fleet = FusedFleet.from_snapshot(blob["fleet"], "cpu")
+    assert (fleet.total_rounds, fleet.total_aus) \
+        == (total["rounds"], total["access_units"])
+    assert fleet.summary() == {k: v for k, v in total.items()
+                               if k in fleet.summary()}

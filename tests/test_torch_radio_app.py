@@ -18,7 +18,7 @@ from dab_radio_tpu.apps import radio_app as j_app
 from dab_radio_tpu.apps import radio_cli as j_cli
 from dab_radio_tpu.apps import simulate_transmitter as j_tx
 from dab_radio_tpu_torch.apps import radio_app as t_app
-from test_torch_tx_apps import run_main
+from test_torch_tx_apps import app_lines, jax_compile_cache_off, run_main
 
 
 @pytest.fixture(scope="module")
@@ -32,7 +32,7 @@ def capture(tmp_path_factory):
 
 
 def _events(err):
-    return [ln for ln in err.splitlines()
+    return [ln for ln in app_lines(err)
             if ln.startswith("+ channel") or ln.startswith("  label:")]
 
 
@@ -42,11 +42,13 @@ def test_radio_app_matches_jax(capture, tmp_path, capfd, monkeypatch):
     monkeypatch.setattr(j_cli.summarize, "__defaults__", (sys.stderr,))
     argv = ["--device", "file", "-i", str(capture), "-c", "5C"]
     capfd.readouterr()
-    assert j_app.main(argv + ["--audio-out", str(tmp_path / "j.wav")]) == 0
-    jerr = capfd.readouterr().err
+    with jax_compile_cache_off(monkeypatch):
+        assert j_app.main(argv + ["--audio-out", str(tmp_path / "j.wav")]) \
+            == 0
+    jerr = "\n".join(app_lines(capfd.readouterr().err))
     assert t_app.main(argv + ["--audio-out", str(tmp_path / "t.wav"),
                               "--backend", "cpu"]) == 0
-    terr = capfd.readouterr().err
+    terr = "\n".join(app_lines(capfd.readouterr().err))
 
     want, got = (tmp_path / "j.wav").read_bytes(), \
         (tmp_path / "t.wav").read_bytes()

@@ -18,7 +18,6 @@ import torch
 
 from dab_radio_tpu.apps import radio_cli as jcli
 from dab_radio_tpu.dab.aac import SuperFrameHeader
-from dab_radio_tpu.utils import cache as jax_cache
 from dab_radio_tpu.host.native import iq_quantize_u8
 from dab_radio_tpu.models.channel import ChannelModel
 from dab_radio_tpu.models.demodulator import (OFDMDemodulator as JDemod,
@@ -30,6 +29,7 @@ from dab_radio_tpu_torch.apps import radio_cli as tcli
 from dab_radio_tpu_torch.models.demodulator import (
     OFDMDemodulator as TDemod, StreamingDemodulator as TStream)
 from dab_radio_tpu_torch.models.receiver import DabReceiver as TRx
+from test_torch_tx_apps import app_lines, jax_compile_cache_off
 
 torch.set_num_threads(1)
 
@@ -130,25 +130,28 @@ def test_port_chain_matches_jax_chain(capture):
         assert tgot["aus"][sub_id] == aus
 
 
+def summary(text):
+    """What a CLI printed to fd 2, timings (`benchmark:`) and the JAX
+    runtime's absl/XLA log lines aside; every other line stays, exact."""
+    return [ln for ln in app_lines(text) if not ln.startswith("benchmark:")]
+
+
 def test_radio_cli_matches_jax_cli(capture, tmp_path, capfd, monkeypatch):
     # the JAX summarize() binds sys.stderr when its module is imported
     # (ROADMAP F5); point it at this test's stderr for this test only, and
-    # keep the JAX CLI from turning on its on-disk compile cache in-process
+    # keep the JAX CLI off the on-disk compile cache, which an earlier test
+    # in this process may have turned on
     monkeypatch.setattr(jcli.summarize, "__defaults__", (sys.stderr,))
-    monkeypatch.setattr(jax_cache, "enable_compile_cache", lambda: None)
     path = tmp_path / "capture.u8"
     iq = capture / np.abs(capture).max() * 0.5
     path.write_bytes(iq_quantize_u8(iq))
     argv = ["-i", str(path), "-F", "u8", "--benchmark", "--backend", "cpu"]
     capfd.readouterr()
-    assert jcli.main(argv) == 0
+    with jax_compile_cache_off(monkeypatch):
+        assert jcli.main(argv) == 0
     jerr = capfd.readouterr().err
     assert tcli.main(argv) == 0
     terr = capfd.readouterr().err
-
-    def summary(text):
-        return [ln for ln in text.splitlines()
-                if not ln.startswith("benchmark:")]
     assert summary(terr) == summary(jerr)
     assert "desync=0" in terr and "id=C0FE" in terr
     assert "rs_err=0 au_err=0" in terr
@@ -179,24 +182,20 @@ def test_radio_cli_tiled_matches_jax_cli(capture, tmp_path, capfd, monkeypatch):
     from dab_radio_tpu.dab import msc as jmsc
     from dab_radio_tpu_torch.dab import msc as tmsc
     monkeypatch.setattr(jcli.summarize, "__defaults__", (sys.stderr,))
-    monkeypatch.setattr(jax_cache, "enable_compile_cache", lambda: None)
     path = tmp_path / "capture.u8"
     path.write_bytes(iq_quantize_u8(capture / np.abs(capture).max() * 0.5))
     argv = ["-i", str(path), "-F", "u8", "--benchmark", "--backend", "cpu",
             "--viterbi", "tiled"]
     try:
         capfd.readouterr()
-        assert jcli.main(argv) == 0
+        with jax_compile_cache_off(monkeypatch):
+            assert jcli.main(argv) == 0
         jerr = capfd.readouterr().err
         assert tcli.main(argv) == 0
         terr = capfd.readouterr().err
     finally:
         jmsc.set_decode_mode("exact")
         tmsc.set_decode_mode("exact")
-
-    def summary(text):
-        return [ln for ln in text.splitlines()
-                if not ln.startswith("benchmark:")]
     assert summary(terr) == summary(jerr)
     assert "desync=0" in terr and "rs_err=0 au_err=0" in terr
 

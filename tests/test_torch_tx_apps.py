@@ -17,9 +17,11 @@ Tolerances:
 - PAD fields, apply_frequency_shift, convert_viterbi, loop_file: exact.
 """
 
+import contextlib
 import glob
 import io
 import os
+import re
 import sys
 
 import numpy as np
@@ -61,6 +63,38 @@ def run_main(main, argv, stdin=b""):
         fake_out.flush()
         sys.stdin, sys.stdout = saved
     return rc, out.getvalue()
+
+
+# absl's log prefix, which XLA writes to fd 2 (e.g. "E1017 04:12:33.123456
+# 2906 cpu_aot_loader.cc:210] Loading XLA:CPU AOT result ...")
+ABSL_LINE = re.compile(r"^[IWEF]\d{4} \d\d:\d\d:\d\d\.\d+ +\d+ \S+:\d+\]")
+
+
+def app_lines(text):
+    """The lines an app printed to fd 2, without absl/XLA log lines (these
+    come from the JAX runtime, not from the app)."""
+    return [ln for ln in text.splitlines() if not ABSL_LINE.match(ln)]
+
+
+@contextlib.contextmanager
+def jax_compile_cache_off(monkeypatch):
+    """The JAX package's persistent compile cache off while the block runs.
+    Its apps turn it on for the whole process (`utils/cache.py`); a hit there
+    writes an XLA log line to fd 2 that the app did not print. The cache
+    directory goes back to None (and the cache is reset, since JAX reads the
+    directory once), then the old value comes back."""
+    import jax
+    from jax.experimental.compilation_cache import compilation_cache
+    from dab_radio_tpu.utils import cache as jax_cache
+    monkeypatch.setattr(jax_cache, "enable_compile_cache", lambda: None)
+    saved = jax.config.jax_compilation_cache_dir
+    jax.config.update("jax_compilation_cache_dir", None)
+    compilation_cache.reset_cache()
+    try:
+        yield
+    finally:
+        jax.config.update("jax_compilation_cache_dir", saved)
+        compilation_cache.reset_cache()
 
 
 # ------------------------------------------------- reference byte contract
@@ -144,7 +178,7 @@ def test_simulate_transmitter_other_formats(fmt, size):
 def _decode(cli, path, scrape, extra, capfd):
     assert cli.main(["-i", str(path), "-F", "u8", "--scraper-enable",
                      "--scraper-output", str(scrape)] + extra) == 0
-    err = capfd.readouterr().err
+    err = "\n".join(app_lines(capfd.readouterr().err))
     final = err[err.rindex("ensemble: id="):]
     files = {os.path.relpath(p, scrape): open(p, "rb").read()
              for p in glob.glob(os.path.join(scrape, "*", "*"))
@@ -170,8 +204,9 @@ def test_ensemble_with_slideshow_decodes_as_jax(tmp_path, capfd,
     (tmp_path / "j.u8").write_bytes(jcap)
     (tmp_path / "t.u8").write_bytes(tcap)
     capfd.readouterr()
-    j_final, j_files, j_aac = _decode(j_cli, tmp_path / "j.u8",
-                                      tmp_path / "js", [], capfd)
+    with jax_compile_cache_off(monkeypatch):
+        j_final, j_files, j_aac = _decode(j_cli, tmp_path / "j.u8",
+                                          tmp_path / "js", [], capfd)
     t_final, t_files, t_aac = _decode(t_cli, tmp_path / "t.u8",
                                       tmp_path / "ts", CPU, capfd)
     assert t_final == j_final
