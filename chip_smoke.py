@@ -28,6 +28,23 @@ It exits non-zero, printing no result, when there is no card. Phases:
    the forward and chainback kernel pair; then the same subchannel after
    set_decode_mode("tiled"): byte-exact again, one windowed launch a decode
    and the pair not at all, and the time of both decodes;
+5a. the round as one program (phase graph): receiver_step captured as CUDA
+   graphs (utils/graphs.py, the default on the card) beside the same step
+   with cuda_graph=False, on the fleet path's 16 streams x 8 frames x 18
+   services, 4 rounds (the last two without a tail, so that their program
+   is captured and replayed), exact, tiled and with block_tracking: every
+   output, the carry and the history bit-identical after every round; the
+   demodulator's frame_step, frame_step_batch and frame_scan likewise at
+   one stream and at 16; then 5 rounds of each of eager, captured,
+   block_tracking eager and block_tracking captured: the step's time
+   between CUDA events and the host's time to issue it, the reserved device
+   memory before and after the capture; and in a child process (this script
+   with --graph-profile) 5 more of each under torch.profiler: K1's launches
+   from LAUNCHES beside the profiler's kernel rows (one a round either way).
+   Every later phase runs captured where the port captures by default (the
+   fused round of FusedFleet and fleet_serve, the frame step and scan) and
+   keeps its checks: a replay adds to the launch counts what its capture
+   recorded;
 6. the fleet path, at full width: 16 streams of that ensemble (4 distinct
    captures, each with its own access units, carrier offset and noise)
    served by the port's fleet_serve on the card, 8 frames a round; 16
@@ -114,11 +131,11 @@ Scratch files go to build/chip_smoke/ in the checkout.
 measures instead: it builds the kernels, makes the same ensemble over more
 frames and decodes it with radio_cli on the card once cold and five times
 warm (wall time and real-time factor), once with the stage spans on, and
-once under torch.profiler (device busy share, device time by kernel). Then
+once under torch.profiler (device busy share, device time by kernel), after
+the fleet round's stop_after ladder in ms a round, eager and captured. Then
 the fleet path: 16 streams through FusedFleet, 5 warm rounds under
-torch.profiler (round wall, device busy share, device time by kernel), and
-the round's stop_after ladder in ms a round. The numbers are printed and
-written to build/chip_smoke/measure.json.
+torch.profiler (round wall, device busy share, device time by kernel). The
+numbers are printed and written to build/chip_smoke/measure.json.
 
     python3 chip_smoke.py --mesh-only --mesh-backend nccl
 
@@ -175,6 +192,12 @@ WINDOW_L = 320
 # and in int32: it is run on this many windows at a time (an eighth of the
 # fleet round's 126,464)
 WINDOW_PLAIN_CHUNK = 15808
+# the graph phase: the fleet path's rounds, captured and eager side by side,
+# this many rounds (the last two without a tail), then this many timed
+# rounds of each way
+GRAPH_ROUNDS = 4
+GRAPH_TIMED_ROUNDS = 5
+GRAPH_PROFILE_TIMEOUT_S = 300
 VARIANT_STREAMS = 2
 VARIANT_K = 4
 BATCHED_STREAMS = 4
@@ -788,47 +811,54 @@ def long_path(dev, mode="exact"):
     return launches
 
 
+class _TimedProgram:
+    """A fleet's program (its round, captured or eager) with CUDA events
+    around each call and the kernel launches each call counted; everything
+    else is the program's."""
+
+    def __init__(self, program, timers):
+        self._program, self._timers = program, timers
+
+    def __getattr__(self, name):
+        return getattr(self._program, name)
+
+    def __call__(self, *args):
+        import torch
+        from dab_radio_tpu_torch.kernels import viterbi_acs as K
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        before = dict(K.LAUNCHES), dict(K.ACS_LAUNCHES_BY_T)
+        start.record()
+        out = self._program(*args)
+        end.record()
+        self._timers.step_events.append((start, end))
+        self._timers.step_launches.append(tuple(
+            {k: v - was.get(k, 0) for k, v in now.items()
+             if v != was.get(k, 0)}
+            for now, was in zip((K.LAUNCHES, K.ACS_LAUNCHES_BY_T), before)))
+        return out
+
+
 class _FleetTimers:
     """While active, times every FusedFleet round of this process: the host
-    wall of process_round, CUDA events around the round's device step, and
-    the host's byte-layer time (_consume); and counts the kernel launches
-    of each round's step."""
+    wall of process_round, CUDA events around the round's device step (the
+    fleet's program: the round and the bit packing), and the host's
+    byte-layer time (_consume); and counts the kernel launches of each
+    round's step, replays of a captured round included."""
 
     def __init__(self):
         self.round_wall_s, self.consume_s, self.step_events = [], [], []
         self.step_launches = []     # per round: (kernel counts, counts by T)
 
     def __enter__(self):
-        import torch
-        from dab_radio_tpu_torch.kernels import viterbi_acs as K
         from dab_radio_tpu_torch.models.fused_fleet import FusedFleet
         self._cls = FusedFleet
         self._saved = (FusedFleet.process_round, FusedFleet._consume)
         process_round, consume = self._saved
         timers = self
 
-        def timed_step(inner):
-            def step(*args):
-                start, end = (torch.cuda.Event(enable_timing=True)
-                              for _ in range(2))
-                before = dict(K.LAUNCHES), dict(K.ACS_LAUNCHES_BY_T)
-                start.record()
-                out = inner(*args)
-                end.record()
-                timers.step_events.append((start, end))
-                timers.step_launches.append(tuple(
-                    {k: v - was.get(k, 0) for k, v in now.items()
-                     if v != was.get(k, 0)}
-                    for now, was in zip((K.LAUNCHES, K.ACS_LAUNCHES_BY_T),
-                                        before)))
-                return out
-            step.__dict__.update(inner.__dict__)
-            step.timed = True
-            return step
-
         def timed_round(fleet, *args, **kw):
-            if not getattr(fleet.step, "timed", False):
-                fleet.step = timed_step(fleet.step)
+            if not isinstance(fleet.program, _TimedProgram):
+                fleet.program = _TimedProgram(fleet.program, timers)
             t0 = time.perf_counter()
             process_round(fleet, *args, **kw)
             timers.round_wall_s.append(time.perf_counter() - t0)
@@ -893,6 +923,280 @@ def _check_streams(lines, scrape, sent_of_stream):
     check(total["streams"] == nb_streams and total["access_units"] == nb_aus,
           f"totals {total} against {nb_aus} access units on disk")
     return nb_aus
+
+
+def _fleet_cfgs():
+    from dab_radio_tpu_torch.params import SubchannelConfig
+    return [SubchannelConfig(48 * i, 48, False, eep_type="A",
+                             eep_prot_level=2) for i in range(NB_SERVICES)]
+
+
+def _fleet_rounds(fleet, paths):
+    """The fleet path's 16 streams, aligned, as GRAPH_ROUNDS u8 rounds of
+    (blk, tail) numpy: three rounds of the captures, the last two without a
+    tail (the fourth repeats the third's samples on the state the third
+    left), so that the tail=None program is captured and then replayed."""
+    streams = _aligned_streams(fleet, paths)
+    streams = [streams[k % len(paths)] for k in range(FLEET_STREAMS)]
+    chunk, tb = 2 * fleet.round_samples, fleet.tail_bytes
+
+    def part(a, b):
+        return np.stack([x[a:b] for x in streams])
+    rounds = [(part(r * chunk, (r + 1) * chunk),
+               part((r + 1) * chunk, (r + 1) * chunk + tb)) for r in range(2)]
+    last = part(2 * chunk, 3 * chunk)
+    return rounds + [(last, None)] * (GRAPH_ROUNDS - 2)
+
+
+def _leaves(x):
+    import torch
+    return [t for t in torch.utils._pytree.tree_leaves(x) if t is not None]
+
+
+def _same(a, b):
+    import torch
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def _graph_rounds_equal(dev, rounds, cfgs, **kw):
+    """receiver_step eager (cuda_graph=False) and captured side by side on
+    the rounds: every output (fib_bits, msc_bits, fic_err, msc_err,
+    offsets), the carry and the history bit-identical after every round.
+    Returns the reserved device bytes before and after the first capture."""
+    import torch
+    from dab_radio_tpu_torch.parallel.mesh import receiver_step
+    args = dict(subchannels_per_shard=NB_SERVICES,
+                ensembles_per_shard=FLEET_STREAMS, ingest="u8",
+                subchannel_cfgs=cfgs, fuse_fic=True, **kw)
+    eager, (c, h, _) = receiver_step(dev, 1, FLEET_K, cuda_graph=False,
+                                     **args)
+    graph, _ = receiver_step(dev, 1, FLEET_K, cuda_graph=True, **args)
+    check(graph.captured, "receiver_step did not capture on the card")
+    estate = gstate = (c, h)
+    reserved = []
+    for r, (blk, tail) in enumerate(rounds):
+        *estate, eout = eager(*estate, blk, tail)
+        if r == 0:
+            torch.cuda.synchronize()
+            reserved.append(torch.cuda.memory_reserved(dev))
+        *gstate, gout = graph(*gstate, blk, tail)
+        if r == 0:
+            torch.cuda.synchronize()
+            reserved.append(torch.cuda.memory_reserved(dev))
+        for k in ("fib_bits", "msc_bits", "fic_err", "msc_err", "offsets"):
+            check(torch.equal(eout[k], gout[k]),
+                  f"graph {kw}: {k} of round {r} (tail "
+                  f"{'None' if tail is None else 'given'}) differs from eager")
+        check(_same(estate, gstate),
+              f"graph {kw}: the state after round {r} differs from eager")
+    check(graph.graphs == 2, f"{graph.graphs} programs captured, 2 expected")
+    return reserved
+
+
+def _graph_timed(fn, state, rounds_dev):
+    """GRAPH_TIMED_ROUNDS rounds of fn (eager or captured, already warm) on
+    device inputs: each round's time between CUDA events and the host's
+    time to issue it (wall of the call, no synchronise)."""
+    import torch
+    state = list(state)
+    torch.cuda.synchronize()
+    events, issue = [], []
+    for r in range(GRAPH_TIMED_ROUNDS):
+        blk, tail = rounds_dev[r % len(rounds_dev)]
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        t0 = time.perf_counter()
+        state[:] = fn(*state, blk, tail)[:2]
+        issue.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return {"event_ms": [a.elapsed_time(b) for a, b in events],
+            "issue_ms": issue}
+
+
+def _graph_setups(dev, paths):
+    """The steps that phase graph times: (name, way, fn, state) for exact
+    and block_tracking, eager and captured, and the rounds on the card."""
+    import torch
+    from dab_radio_tpu_torch.models.fused_fleet import FusedFleet
+    from dab_radio_tpu_torch.parallel.mesh import receiver_step
+    cfgs = _fleet_cfgs()
+    align = FusedFleet(1, cfgs, 1, FLEET_K, device=dev, cuda_graph=False)
+    rounds = _fleet_rounds(align, paths)
+    rounds_dev = [tuple(torch.as_tensor(x, device=dev) for x in r)
+                  for r in rounds[:2]]
+    setups = []
+    for name, kw in (("exact", {}),
+                     ("block_tracking", dict(block_tracking=True))):
+        for way in ("eager", "captured"):
+            fn, (c, h, _) = receiver_step(
+                dev, 1, FLEET_K, subchannels_per_shard=NB_SERVICES,
+                ensembles_per_shard=FLEET_STREAMS, ingest="u8",
+                subchannel_cfgs=cfgs, fuse_fic=True,
+                cuda_graph=way == "captured", **kw)
+            setups.append((name, way, fn, (c, h)))
+    return setups, rounds, rounds_dev
+
+
+def graph_profile(dev):
+    """chip_smoke.py --graph-profile: phase graph's profiled rounds, in a
+    process of their own (a torch.profiler session leaves the CUDA
+    profiling interface attached to the process, which the phases after it
+    must not run under). For exact and block_tracking, eager and captured:
+    two warm rounds (a capture), then GRAPH_TIMED_ROUNDS rounds under
+    torch.profiler: K1's launches from LAUNCHES and the profiler's
+    viterbi_forward rows; then the same rounds timed after the session.
+    Prints one line "graph profile: {json}"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dab_radio_tpu_torch.kernels import viterbi_acs as K
+    paths = [os.path.join(WORK, f"capture{k}_{NB_FRAMES}.u8")
+             for k in range(FLEET_DISTINCT)]
+    setups, _, rounds_dev = _graph_setups(dev, paths)
+    out = {}
+    for name, way, fn, state in setups:
+        state = list(state)
+        for blk, tail in rounds_dev:
+            state[:] = fn(*state, blk, tail)[:2]
+        torch.cuda.synchronize()
+        K.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as tp:
+            for r in range(GRAPH_TIMED_ROUNDS):
+                state[:] = fn(*state, *rounds_dev[r % 2])[:2]
+            torch.cuda.synchronize()
+        rows = [e for e in tp.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "viterbi_forward" in e.key]
+        out[f"{name} {way}"] = {
+            "launches": dict(K.LAUNCHES),
+            "profiler_k1_calls": sum(e.count for e in rows),
+            "profiler_k1_rows": sorted(e.key[:40] for e in rows),
+            "after_profiler": _graph_timed(fn, state, rounds_dev)}
+    print("graph profile: " + json.dumps(out), flush=True)
+    return 0
+
+
+def _demod_graph_equal(dev, paths):
+    """frame_step, frame_step_batch and frame_scan captured against
+    cuda_graph=False at the one-stream shape (one window, FLEET_K frames a
+    scan) and the batched one (the 16 streams): three chained calls each,
+    every output bit-identical. Returns the one-stream frame step's host
+    times, each way."""
+    from dab_radio_tpu_torch.models.demodulator import (DemodCarry,
+                                                        OFDMDemodulator)
+    graph = OFDMDemodulator(1, device=dev)
+    eager = OFDMDemodulator(1, device=dev, cuda_graph=False)
+    W, A = graph.window_len, graph.frame_advance
+    rows = []
+    for k in range(FLEET_STREAMS):
+        u8 = np.fromfile(paths[k % len(paths)], np.uint8)[
+            :2 * (FLEET_K * A + W)]
+        rows.append(((u8.astype(np.float32) - 127.5) / np.float32(127.5))
+                    .view(np.complex64))
+    rows = np.stack(rows)
+    for batch, iq in (((), rows[0]), ((FLEET_STREAMS,), rows)):
+        def step(d, c, f, iq=iq, batch=batch):
+            fn = d.frame_step_batch if batch else d.frame_step
+            return fn(c, iq[..., f * A:f * A + W])
+
+        def scan(d, c, f, iq=iq):
+            return d.frame_scan(FLEET_K, c, iq[..., :FLEET_K * A + W])
+        for name, call in (("frame_step_batch" if batch else "frame_step",
+                            step), ("frame_scan", scan)):
+            cg = ce = DemodCarry.init(batch, device=dev)
+            for f in range(3):
+                og, oe = call(graph, cg, f), call(eager, ce, f)
+                check(_same(og, oe), f"{name} at "
+                      f"{batch or 'one stream'}, call {f}: captured differs "
+                      "from eager")
+                cg, ce = og[0], oe[0]
+    check(graph._step_program.graphs == 2
+          and graph._scan_program.graphs == 2,
+          "the demodulator's programs were not captured once a shape")
+    # the one-stream frame step, 20 calls each way: host wall of a call that
+    # ends in the read of sync_ok, as StreamingDemodulator reads it
+    times = {}
+    for name, d in (("eager", eager), ("captured", graph)):
+        c = DemodCarry.init(device=dev)
+        took = []
+        for f in range(20):
+            t0 = time.perf_counter()
+            c, out = d.frame_step(c, rows[0][(f % 3) * A:(f % 3) * A + W])
+            bool(out["sync_ok"])
+            took.append((time.perf_counter() - t0) * 1e3)
+        times[name] = took[5:]
+    return times
+
+
+def graph_path(dev, paths):
+    """Phase graph: the round as one captured program. receiver_step eager
+    and captured side by side on the fleet path's 16 streams x 8 frames x
+    18 services, GRAPH_ROUNDS rounds (the last two without a tail), exact,
+    tiled and with block_tracking: every output and the state bit-identical
+    after every round. The demodulator's frame step, batch and scan
+    likewise. Then GRAPH_TIMED_ROUNDS rounds of each of eager, captured,
+    block_tracking eager and block_tracking captured: the step's time
+    between CUDA events and the host's time to issue it; the reserved
+    device memory before and after the capture; and, in a process of its
+    own (graph_profile), K1's launches from LAUNCHES beside the profiler's
+    kernel rows (one a round either way)."""
+    import torch
+    from dab_radio_tpu_torch.kernels import viterbi_acs as K
+    setups, rounds, rounds_dev = _graph_setups(dev, paths)
+    cfgs = _fleet_cfgs()
+    K.reset_launches()
+    for name, kw in (("exact", {}), ("tiled", dict(viterbi="tiled")),
+                     ("block_tracking", dict(block_tracking=True))):
+        reserved = _graph_rounds_equal(dev, rounds, cfgs, **kw)
+        log(f"graph {name}: {GRAPH_ROUNDS} rounds of {FLEET_STREAMS} streams "
+            f"x {FLEET_K} frames (the last two without a tail), captured "
+            "bit-identical to eager in every output and the state; reserved "
+            f"MB before / after the first capture = "
+            f"{reserved[0] / 2**20:.1f} / {reserved[1] / 2**20:.1f}")
+    launches = dict(K.LAUNCHES)
+    for name, way, fn, state in setups:
+        for blk, tail in rounds_dev:            # warm: the capture
+            state = fn(*state, blk, tail)[:2]
+        t = _graph_timed(fn, state, rounds_dev)
+        log(f"graph {name} {way}: step between CUDA events ms = "
+            + json.dumps([round(x, 3) for x in t["event_ms"]])
+            + ", host issue ms = "
+            + json.dumps([round(x, 3) for x in t["issue_ms"]]))
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--graph-profile"], capture_output=True, text=True,
+                         timeout=GRAPH_PROFILE_TIMEOUT_S, cwd=ROOT)
+    lines = [ln for ln in res.stdout.splitlines()
+             if ln.startswith("graph profile: ")]
+    check(res.returncode == 0 and len(lines) == 1,
+          f"graph --graph-profile: rc {res.returncode}, "
+          f"{res.stderr[-3000:]}")
+    kernel = "viterbi_decode_fused"
+    def ms(xs):
+        return json.dumps([round(x, 3) for x in xs])
+    for key, p in json.loads(lines[0][len("graph profile: "):]).items():
+        check(p["launches"] == launched(**{kernel: GRAPH_TIMED_ROUNDS})
+              and p["profiler_k1_calls"] == GRAPH_TIMED_ROUNDS,
+              f"graph {key}: K1 launches {p['launches']}, profiler rows "
+              f"{p['profiler_k1_calls']} {p['profiler_k1_rows']} over "
+              f"{GRAPH_TIMED_ROUNDS} rounds")
+        log(f"graph {key}: K1 launches {p['launches'][kernel]} (LAUNCHES) / "
+            f"{p['profiler_k1_calls']} (profiler rows "
+            f"{p['profiler_k1_rows']}) over {GRAPH_TIMED_ROUNDS} rounds; "
+            "after the profiler session: between CUDA events ms = "
+            + ms(p["after_profiler"]["event_ms"]) + ", host issue ms = "
+            + ms(p["after_profiler"]["issue_ms"]))
+    step_ms = _demod_graph_equal(dev, paths)
+    log("graph demod: frame_step, frame_step_batch and frame_scan captured "
+        f"bit-identical to eager at one stream and {FLEET_STREAMS}; "
+        "one-stream frame step host wall ms (to the read of sync_ok) eager = "
+        + json.dumps([round(x, 3) for x in step_ms["eager"]])
+        + ", captured = "
+        + json.dumps([round(x, 3) for x in step_ms["captured"]]))
+    return launches
 
 
 def fleet_path(dev, paths, sents, viterbi="exact", port=0):
@@ -1014,7 +1318,8 @@ def variants_path(dev, paths):
             carry, hist, out = step(carry, hist, blk, tail)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-            outs.append(out)
+            # a captured step's outputs are its buffers: keep copies
+            outs.append({k: v.clone() for k, v in out.items()})
         return outs, times
 
     K.reset_launches()
@@ -1023,8 +1328,9 @@ def variants_path(dev, paths):
     check(launches == launched(viterbi_decode_fused=2),
           f"the default step launched {launches}")
     log(f"variants path: {VARIANT_STREAMS} streams x {VARIANT_K} frames, "
-        f"{lanes} lanes of 1542 steps; default step (K1) "
-        + json.dumps([round(x, 4) for x in base_s]) + " s")
+        f"{lanes} lanes of 1542 steps, captured (the first round is the "
+        "eager warm-up and the capture, the second a replay); default step "
+        "(K1) " + json.dumps([round(x, 4) for x in base_s]) + " s")
     for kw in (dict(chainback="parallel"), dict(chainback="fused"),
                dict(viterbi_branch="lut"), dict(viterbi="radix8")):
         got, took_s = run(**kw)
@@ -1036,7 +1342,7 @@ def variants_path(dev, paths):
                       f"step's")
         log(f"variants path: {kw} equal to the default step in all outputs; "
             "step " + json.dumps([round(x, 4) for x in took_s]) + " s (torch "
-            "loops over the trellis, no kernel)")
+            "loops over the trellis, no kernel, captured as one graph)")
     check(dict(K.LAUNCHES) == launches,
           f"a variant launched a kernel: {dict(K.LAUNCHES)}")
     return launches
@@ -2278,6 +2584,7 @@ def measure(dev, nb_frames):
         return wall
 
     out = {"frames": nb_frames, "air_s": air, "device": torch.cuda.get_device_name(0)}
+    out["stop_after_ms"] = measure_ladder(dev, paths)
     K.reset_launches()
     out["first_wall_s"] = run()
     out["launches_per_run"] = dict(K.LAUNCHES)
@@ -2300,20 +2607,52 @@ def measure(dev, nb_frames):
         json.dump(out, f, indent=1)
 
 
+def measure_ladder(dev, paths):
+    """The fleet round's stop_after ladder, eager and captured: each prefix
+    3 times on one round of the 16 streams on the card, from the same state,
+    fenced by a fetch of its digest, in ms. Run before any torch.profiler
+    session of the process: one leaves the CUDA profiling interface
+    attached, which slows the launch of a captured graph."""
+    import torch
+    from dab_radio_tpu_torch.models.fused_fleet import FusedFleet
+    from dab_radio_tpu_torch.parallel.mesh import STOP_AFTER, receiver_step
+    cfgs = _fleet_cfgs()
+    align = FusedFleet(1, cfgs, 1, FLEET_K, device=dev, cuda_graph=False)
+    blk, tail = (torch.as_tensor(x, device=dev)
+                 for x in _fleet_rounds(align, paths)[1])
+    ladder = {}
+    for stop in STOP_AFTER[1:] + (None,):
+        for way in ("eager", "captured"):
+            step, (carry, hist, _) = receiver_step(
+                dev, 1, FLEET_K, subchannels_per_shard=NB_SERVICES,
+                ensembles_per_shard=FLEET_STREAMS, ingest="u8",
+                subchannel_cfgs=cfgs, fuse_fic=True, stop_after=stop,
+                cuda_graph=way == "captured")
+
+            def run():
+                res = step(carry, hist, blk, tail)[2]
+                # the fetch of one scalar waits for the whole prefix
+                float(res["digest"] if stop else res["msc_err"].sum())
+            run()                    # captured: the warm-up and the capture
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ladder[f"{stop or 'full'} {way}"] = times
+    return ladder
+
+
 def measure_fleet(dev, paths):
     """The fleet path through FusedFleet: 16 streams x 8 frames a round, one
-    cold round, then 5 warm rounds under torch.profiler, then the round's
-    stop_after ladder (each prefix 3 times, fenced by a fetch of its
-    digest). Needs captures of at least 6 * 8 + 1 frames."""
+    cold round, then 5 warm rounds under torch.profiler. Needs captures of
+    at least 6 * 8 + 1 frames."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from dab_radio_tpu_torch.kernels import viterbi_acs as K
     from dab_radio_tpu_torch.models.fused_fleet import FusedFleet
-    from dab_radio_tpu_torch.parallel.mesh import STOP_AFTER, receiver_step
-    from dab_radio_tpu_torch.params import SubchannelConfig
-    cfgs = [SubchannelConfig(48 * i, 48, False, eep_type="A", eep_prot_level=2)
-            for i in range(NB_SERVICES)]
-    fleet = FusedFleet(FLEET_STREAMS, cfgs, 1, FLEET_K, device=dev)
+    fleet = FusedFleet(FLEET_STREAMS, _fleet_cfgs(), 1, FLEET_K, device=dev)
     chunk, tb = 2 * fleet.round_samples, fleet.tail_bytes
     streams = _aligned_streams(fleet, paths)
     streams = [streams[k % len(paths)] for k in range(FLEET_STREAMS)]
@@ -2355,27 +2694,6 @@ def measure_fleet(dev, paths):
      out["kernels_5_rounds"]) = _device_profile(tp, wall)
     out["device_time_ms_per_round"] /= 5
 
-    blk, tail = (torch.as_tensor(x, device=dev) for x in round_at(1))
-    ladder = {}
-    for stop in STOP_AFTER[1:] + (None,):
-        step, (carry, hist, _) = receiver_step(
-            dev, 1, FLEET_K, subchannels_per_shard=NB_SERVICES,
-            ensembles_per_shard=FLEET_STREAMS, ingest="u8",
-            subchannel_cfgs=cfgs, fuse_fic=True, stop_after=stop)
-
-        def run():
-            res = step(carry, hist, blk, tail)[2]
-            # the fetch of one scalar waits for the whole prefix
-            float(res["digest"] if stop else res["msc_err"].sum())
-        run()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            run()
-            times.append((time.perf_counter() - t0) * 1e3)
-        ladder[stop or "full"] = times
-    out["stop_after_ms"] = ladder
     return out
 
 
@@ -2392,10 +2710,14 @@ def main():
     ap.add_argument("--mesh-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--mesh-init", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--graph-profile", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.mesh_rank is not None:
         return mesh_rank(args.mesh_rank, args.mesh_init, args.mesh_backend)
     import torch
+    if args.graph_profile:
+        return graph_profile(torch.device("cuda", 0))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -2427,6 +2749,7 @@ def main():
     launches = {"main": phase("main", main_path, dev, paths[0], sents[0]),
                 "long": phase("long", long_path, dev),
                 "long_tiled": phase("long_tiled", long_path, dev, "tiled"),
+                "graph": phase("graph", graph_path, dev, paths),
                 "fleet": phase("fleet", fleet_path, dev, paths, sents),
                 "fleet_tiled": phase("fleet_tiled", fleet_path, dev, paths,
                                      sents, "tiled"),

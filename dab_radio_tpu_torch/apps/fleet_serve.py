@@ -259,8 +259,9 @@ def _maybe_build_plot(fleet, box, blk_u8):
         window = iq_convert(np.ascontiguousarray(row).tobytes(),
                             "u8")[:d.window_len]
         # the carry lives on the fleet's device: fetch it through the host
-        fc = fleet._carry.freq_coarse.cpu().numpy().reshape(fleet.N, -1)
-        ff = fleet._carry.freq_fine.cpu().numpy().reshape(fleet.N, -1)
+        fleet_carry = fleet.carry
+        fc = fleet_carry.freq_coarse.cpu().numpy().reshape(fleet.N, -1)
+        ff = fleet_carry.freq_fine.cpu().numpy().reshape(fleet.N, -1)
         carry = SimpleNamespace(freq_coarse=float(fc[k, 0]),
                                 freq_fine=float(ff[k, 0]))
         out = plot_payload(collect_diagnostics(d, window, carry))

@@ -370,6 +370,24 @@ int fused_smem_needed(int T) {
   return kRingBytes + (8 * T + (T + 7) / 8 * 8 + 15) / 16 * 16;
 }
 
+// Raises viterbi_forward<kFused>'s dynamic shared memory limit to the
+// block's whole budget, once for each device: afterwards a launch is the
+// launch alone, which is all a CUDA graph capture may see.
+template <bool kFused>
+cudaError_t allow_large_smem() {
+  constexpr int kMaxDevices = 64;
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  rc = cudaFuncSetAttribute(viterbi_forward<kFused>,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            kMaxDynamicSmem);
+  if (rc == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return rc;
+}
+
 template <bool kFused>
 int launch_forward(const void* d, void* dec, void* bits, void* err,
                    const void* first_tile, int B, int T, int start_state,
@@ -382,9 +400,7 @@ int launch_forward(const void* d, void* dec, void* bits, void* err,
       ((start_state | end_state) & ~63) || reinterpret_cast<uintptr_t>(d) % 4)
     return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        viterbi_forward<kFused>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxDynamicSmem);
+    const cudaError_t rc = allow_large_smem<kFused>();
     if (rc != cudaSuccess) return (int)rc;
   }
   const int blocks = (B + msgs_per_block - 1) / msgs_per_block;

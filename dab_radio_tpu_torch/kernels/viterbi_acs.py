@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from . import build
+from ..utils import graphs
 
 NB_STATES = 64
 CODE_RATE = 4
@@ -63,10 +64,12 @@ RING_BYTES = 4096              # staged symbols of one message (1024 steps)
 
 # launches of each kernel, and of a forward pass by trellis length T,
 # whichever kernel ran it (tells the FIC decodes, T = 774, from the MSC
-# ones); reset_launches()
+# ones); reset_launches(). A replay of a captured program adds the launches
+# its capture recorded (utils/graphs.py).
 LAUNCHES = {"viterbi_decode_fused": 0, "viterbi_acs": 0,
             "viterbi_chainback": 0, "viterbi_decode_windows": 0}
 ACS_LAUNCHES_BY_T = collections.Counter()
+graphs.LAUNCH_COUNTERS += [LAUNCHES, ACS_LAUNCHES_BY_T]
 
 
 def reset_launches():
@@ -166,7 +169,7 @@ def start_metrics(B: int, device, first_tile: torch.Tensor = None,
     _check_state(start_state, "start_state")
     pm0 = torch.full((B, NB_STATES), INITIAL_NON_START, dtype=torch.int32,
                      device=device)
-    pm0[:, start_state] = 0
+    pm0[:, start_state].fill_(0)
     if first_tile is not None:
         pm0 = pm0 * first_tile.to(torch.int32)[:, None]
     return pm0

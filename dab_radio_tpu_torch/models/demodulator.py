@@ -5,6 +5,9 @@ plus a timing margin, with all synchronisation state in an explicit carry
 of tensors on the demodulator's device. The host driver only moves a read
 pointer (acquisition / per-frame timing drift). A leading batch axis on the
 window and carry demodulates many streams at once (``frame_step_batch``).
+On a CUDA device the frame step and the K-frame scan run as captured CUDA
+graphs (``utils/graphs.py``), one for each window shape and frame count,
+as the JAX package jits them.
 
 Per frame the step performs:
   1. running L1 signal average update (AGC reference for null-dip search)
@@ -23,6 +26,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from ..params import get_ofdm_params, get_prs_reference
 from ..params.mapper import get_carrier_mapper, get_carrier_to_fft_bin
@@ -30,6 +34,7 @@ from ..ops import sync as sync_ops
 from ..ops.demod import demod_frame_body
 from ..ops.pll import apply_pll
 from ..utils.backend import to_device
+from ..utils.graphs import CapturedProgram
 from ..utils.profiler import profile_scope
 
 
@@ -85,11 +90,19 @@ def _select(cond, a: DemodCarry, b: DemodCarry) -> DemodCarry:
 
 
 class OFDMDemodulator:
-    """Holds the mode constants (on `device`) and the frame step."""
+    """Holds the mode constants (on `device`) and the frame step.
+
+    cuda_graph (see ``utils/graphs.py``): None runs ``frame_step``,
+    ``frame_step_batch`` and ``frame_scan`` as captured CUDA graphs on a
+    CUDA device and eagerly on the CPU, True asks for the capture (raises
+    for a CPU device), False is the eager path. Their results are the same
+    either way, bit for bit, and are the caller's own: a captured call
+    returns copies of the graph's buffers, so a caller may keep a carry or
+    the bits across calls."""
 
     def __init__(self, transmission_mode: int = 1,
                  config: DemodConfig = DemodConfig(), *,
-                 device: torch.device):
+                 device: torch.device, cuda_graph=None):
         self.mode = transmission_mode
         self.cfg = config
         self.device = torch.device(device)
@@ -114,9 +127,31 @@ class OFDMDemodulator:
         self.frame_advance = p.nb_frame_samples   # nominal samples per frame
         self._body_ar = torch.arange(self.body_len, device=dev)
         self._window_ar = torch.arange(self.window_len, device=dev)
+        # the counterparts of the JAX class's jitted step and scan: one
+        # program each, a graph for each window shape and frame count
+        self._step_program = CapturedProgram(self._frame_step_impl, dev,
+                                             cuda_graph=cuda_graph)
+        self._scan_program = CapturedProgram(self._frame_scan_impl, dev,
+                                             cuda_graph=cuda_graph)
 
     def _as_iq(self, x) -> torch.Tensor:
         return to_device(x, self.device, np.complex64)
+
+    def _run(self, program: CapturedProgram, *args):
+        """program(*args) with the IQ argument (the last) as ``_as_iq``
+        makes it; a captured program takes a numpy one as complex64 on the
+        host and stages it itself. A captured program's results are copied
+        out of its buffers."""
+        *head, iq = args
+        if program.captured and not torch.is_tensor(iq):
+            iq = np.require(iq, np.complex64)
+        else:
+            iq = self._as_iq(iq)
+        out = program(*head, iq)
+        if program.captured:
+            out = pytree.tree_map(
+                lambda x: x.clone() if torch.is_tensor(x) else x, out)
+        return out
 
     # ---------------- device ops ----------------
 
@@ -209,7 +244,9 @@ class OFDMDemodulator:
         remaining frames are masked invalid. Returns (carry,
         consumed_samples, {bits (F, nb_bits), valid (F,)}), with a leading
         B on all three for a batch."""
-        buf = self._as_iq(buf)
+        return self._run(self._scan_program, nb_frames, carry, buf)
+
+    def _frame_scan_impl(self, nb_frames: int, carry: DemodCarry, buf):
         batch = buf.shape[:-1]
         max_pos = nb_frames * self.frame_advance
         pos = torch.zeros(batch, dtype=torch.int64, device=self.device)
@@ -230,11 +267,11 @@ class OFDMDemodulator:
 
     def frame_step(self, carry: DemodCarry, window):
         """Single-stream step; window (window_len,) complex."""
-        return self._frame_step_impl(carry, self._as_iq(window))
+        return self._run(self._step_program, carry, window)
 
     def frame_step_batch(self, carry: DemodCarry, windows):
         """Batched step; windows (B, window_len) complex, carry fields (B,)."""
-        return self._frame_step_impl(carry, self._as_iq(windows))
+        return self._run(self._step_program, carry, windows)
 
 
 class _StreamBuffer:

@@ -7,6 +7,10 @@ Viterbi for every stream run as one round of frames_per_step frames on the
 fleet's device (``parallel/mesh.py:receiver_step``, mixed UEP/EEP shapes
 included, one Viterbi launch a round). The decoded bits are packed to bytes
 on the device, and the host touches only the FIG and superframe byte layer.
+On a CUDA device the round and the packing run as one captured CUDA graph
+(``utils/graphs.py``, the counterpart of the JAX fleet's jitted step and
+``_pack``), which holds the round's state (the demod carry and the
+deinterleaver history) in buffers of its own.
 
 Feed rounds with ``process_round(iq)`` where iq is (N, 2 * K *
 frame_samples) raw interleaved uint8 IQ: a numpy array, or a tensor that
@@ -45,6 +49,7 @@ from ..dab.aac import SuperframeProcessor
 from ..ops.crc import crc16_check_batch
 from ..params import SubchannelConfig, get_dab_params, get_ofdm_params
 from ..utils.backend import to_device
+from ..utils.graphs import CapturedProgram
 from .demodulator import DemodCarry, OFDMDemodulator
 from .receiver import DabReceiver
 
@@ -59,9 +64,10 @@ def _cfg_from_db(sub) -> SubchannelConfig:
 
 
 def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
-    """(..., 8n) 0/1 values -> (..., n) uint8, MSB first, on bits' device."""
-    w = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32,
-                     device=bits.device)
+    """(..., 8n) 0/1 values -> (..., n) uint8, MSB first, on bits' device.
+    The weights 128 .. 1 are made on the device: a captured graph copies
+    nothing from the host."""
+    w = 128 >> torch.arange(8, dtype=torch.int32, device=bits.device)
     b = bits.to(torch.int32).reshape(*bits.shape[:-1], -1, 8)
     return (b * w).sum(-1).to(torch.uint8)
 
@@ -72,7 +78,9 @@ class _Fetch:
     On a CUDA device the copies go to pinned host tensors without blocking
     and an event marks their end: ``arrays()`` waits for that event alone,
     so the caller can do host work while the round is still on the card.
-    The pinned tensors belong to the fleet and are reused every other
+    The copies are queued right after the round on its stream, so they read
+    the captured round's output buffers before the next round overwrites
+    them. The pinned tensors belong to the fleet and are reused every other
     round. On the CPU the tensors are handed over as they are."""
 
     def __init__(self, packed, pinned):
@@ -100,7 +108,7 @@ class FusedFleet:
                  subchannel_kinds=None, viterbi: str = "exact",
                  chainback: str = "sequential",
                  viterbi_branch: str = "matmul", fuse_fic: bool = True,
-                 consume_workers: int = 0, mesh=None):
+                 consume_workers: int = 0, mesh=None, cuda_graph=None):
         from ..parallel.mesh import multichip_receiver_step, receiver_step
         self.nb_streams = nb_streams
         self.mesh = mesh
@@ -136,10 +144,14 @@ class FusedFleet:
                     subchannel_cfgs=subchannel_cfgs,
                     block_tracking=block_tracking, viterbi=viterbi,
                     chainback=chainback, viterbi_branch=viterbi_branch,
-                    fuse_fic=fuse_fic)
+                    fuse_fic=fuse_fic, cuda_graph=False)
+        if mesh is not None and cuda_graph:
+            raise NotImplementedError(
+                "a fleet on a mesh runs its round eagerly: capturing the "
+                "round's collectives is not done yet")
         if mesh is None:
             self.frames_per_round = frames_per_step
-            self.step, (self._carry, self._hist, _) = receiver_step(
+            self.step, state = receiver_step(
                 self.device, transmission_mode, subchannels_per_shard=self.S,
                 ensembles_per_shard=nb_streams, **args)
         else:
@@ -149,11 +161,17 @@ class FusedFleet:
                     f"split over the mesh {mesh.shape}")
             # each round takes frames_per_step frames a time shard
             self.frames_per_round = mesh.shape["time"] * frames_per_step
-            self.step, (self._carry, self._hist, _) = multichip_receiver_step(
+            self.step, state = multichip_receiver_step(
                 mesh, transmission_mode,
                 subchannels_per_shard=self.S // mesh.shape["sub"],
                 ensembles_per_shard=nb_streams // mesh.shape["ens"],
                 device=self.device, **args)
+        # self.step is the plain round; the program runs it with the bit
+        # packing and holds its state (carry, history)
+        self._init_state = state[:2]
+        self.program = CapturedProgram(
+            self._round, self.device, state=self._init_state,
+            cuda_graph=False if mesh is not None else cuda_graph)
         # the global stream rows this fleet serves: all of them, or on a
         # mesh those of this rank's ens coordinate
         self.rows = (0, nb_streams) if mesh is None else self.step.rows
@@ -199,7 +217,6 @@ class FusedFleet:
                         for b in range(*self.rows)]
         self._pending: Optional[_Fetch] = None
         self._pinned = [None, None]    # the fetches' host tensors, in turns
-        self._init_state = (self._carry, self._hist)
         self.last_frame_offsets = np.zeros(self.N, np.int64)
         self.last_fib_ok = np.zeros(self.N, np.int64)
         self.materialized_rounds = 0   # rounds whose results reached host
@@ -234,7 +251,13 @@ class FusedFleet:
         """(carry leaves, deinterleaver history) as numpy arrays: the six
         DemodCarry fields of shape (N, 1) and the (N, S, 16, nb_sub_bits)
         int8 history."""
-        return self._carry.numpy(), self._hist.cpu().numpy()
+        carry, hist = self.program.read_state()
+        return carry.numpy(), hist.cpu().numpy()
+
+    @property
+    def carry(self) -> DemodCarry:
+        """A copy of the demod carry, on the fleet's device."""
+        return self.program.read_state()[0]
 
     def load_state(self, carry, hist):
         """Inverse of state(); raises if the shapes are not this fleet's."""
@@ -245,8 +268,9 @@ class FusedFleet:
             raise ValueError(
                 "the state does not fit this fleet's round (streams, "
                 f"subchannel width or time axis differ): {ref} vs {got}")
-        self._carry = DemodCarry.from_numpy(carry, self.device)
-        self._hist = to_device(np.asarray(hist, np.int8), self.device)
+        self.program.load_state((
+            DemodCarry.from_numpy(carry, self.device),
+            to_device(np.asarray(hist, np.int8), self.device)))
 
     # ---- checkpoint/resume ----
 
@@ -293,7 +317,7 @@ class FusedFleet:
         """A mesh fleet's snapshot dict with the whole fleet's state, on
         rank 0; None on the other ranks."""
         from ..parallel.mesh import _gather_objects, gather_round
-        state = gather_round(self.mesh, self._carry, self._hist, {})
+        state = gather_round(self.mesh, *self.program.read_state(), {})
         keys = ("kinds", "receivers", "sfp", "counters", "health")
         parts = _gather_objects(self.mesh, {k: mine[k] for k in keys}
                                 if self.mesh.is_leader else None, 0)
@@ -334,8 +358,9 @@ class FusedFleet:
                     fuse_fic=d["fuse_fic"], consume_workers=consume_workers,
                     mesh=mesh)
         n_time = 1 if mesh is None else mesh.shape["time"]
-        want = [(fleet.nb_streams, n_time)] * len(fleet._carry) + [
-            (fleet.nb_streams, fleet.S) + tuple(fleet._hist.shape[2:])]
+        carry0, hist0 = fleet._init_state
+        want = [(fleet.nb_streams, n_time)] * len(carry0) + [
+            (fleet.nb_streams, fleet.S) + tuple(hist0.shape[2:])]
         got = [np.asarray(x).shape for x in (*d["carry"], d["hist"])]
         if got != want:
             raise ValueError(
@@ -372,7 +397,7 @@ class FusedFleet:
         audio decoders, counters), keeping the round's tables and the
         registered callbacks. Used to retune a serving fleet to a new
         capture or frequency."""
-        self._carry, self._hist = self._init_state
+        self.program.load_state(self._init_state)
         self.receivers = [DabReceiver(self._mode, device=self.device)
                           for _ in range(self.N)]
         self._sfp = self._make_procs()
@@ -494,14 +519,9 @@ class FusedFleet:
         of iq_u8, its time block."""
         if self.mesh is not None:
             iq_u8, tail_u8 = self._local(iq_u8), self._local(tail_u8, False)
-        self._carry, self._hist, out = self.step(
-            self._carry, self._hist, iq_u8, tail_u8)
-        # the bit packing stays on the device: 8x fewer bytes to fetch
-        packed = (_pack_bits(out["fib_bits"]), out["offsets"][:, -1])
-        if self.mesh is None:
-            packed += (_pack_bits(out["msc_bits"]),)
-        else:
-            packed += self._to_leader(out["msc_bits"])
+        fib, offsets, msc = self.program(iq_u8, tail_u8)
+        packed = (fib, offsets)
+        packed += (msc,) if self.mesh is None else self._to_leader(msc)
         fetch = _Fetch(packed, self._pinned_for(packed))
         if defer_fetch:
             prev, self._pending = self._pending, fetch
@@ -510,6 +530,16 @@ class FusedFleet:
         else:
             self._materialize(fetch)
         self.total_rounds += 1
+
+    def _round(self, state, iq_u8, tail_u8):
+        """The program's function: the round from state (carry, history),
+        then the bit packing, which stays on the device (8x fewer bytes to
+        fetch) -> (new state, (FIB bytes, each stream's last frame offset,
+        subchannel bytes))."""
+        carry, hist, out = self.step(*state, iq_u8, tail_u8)
+        return (carry, hist), (_pack_bits(out["fib_bits"]),
+                               out["offsets"][:, -1],
+                               _pack_bits(out["msc_bits"]))
 
     def _local(self, x, block: bool = True):
         """This rank's part of a round's input of all N streams: its
@@ -526,13 +556,13 @@ class FusedFleet:
             x = x[:, t * n:(t + 1) * n]
         return x
 
-    def _to_leader(self, msc_bits):
+    def _to_leader(self, msc_bytes):
         """(the packed subchannel bytes of every sub rank,) on the leader,
         gathered over 'sub' among the time-0 ranks; () on the others."""
         from ..parallel.mesh import _all_gather
         if self.mesh.coords["time"] != 0:
             return ()
-        msc = _all_gather(self.mesh, "sub", _pack_bits(msc_bits))
+        msc = _all_gather(self.mesh, "sub", msc_bytes)
         if not self.mesh.is_leader:
             return ()
         # (n_sub, N, S_loc, C, n) -> (N, S, C, n)
@@ -583,7 +613,7 @@ class FusedFleet:
         would otherwise fight the new signal. Superframe/packet sync
         machines re-sync themselves; the 16-CIF deinterleaver warm-up
         garbage is CRC-gated as usual."""
-        self._carry, self._hist = self._init_state
+        self.program.load_state(self._init_state)
         self._pending = None
         self.last_frame_offsets = np.zeros(self.N, np.int64)
         self.last_fib_ok = np.zeros(self.N, np.int64)

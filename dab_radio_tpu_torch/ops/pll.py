@@ -20,6 +20,11 @@ def apply_pll(x: torch.Tensor, freq_norm, t0=0.0) -> torch.Tensor:
     dev = x.device
     t = torch.arange(n, dtype=torch.float32, device=dev)
     f = torch.as_tensor(freq_norm, dtype=torch.float32, device=dev)
-    t0 = torch.as_tensor(t0, dtype=torch.float32, device=dev)
-    phase = TWO_PI * (f[..., None] * (t + t0[..., None]))
+    # a number t0 is added as the float32 it rounds to, with no tensor made
+    # from it on the host: a captured CUDA graph may copy nothing from there
+    if torch.is_tensor(t0):
+        t = t + t0.to(torch.float32)[..., None]
+    elif t0:
+        t = t + t0
+    phase = TWO_PI * (f[..., None] * t)
     return x * torch.polar(torch.ones_like(phase), phase)

@@ -213,27 +213,37 @@ def viterbi_decode_soft(depunctured: torch.Tensor, start_state: int = 0,
     return bits.reshape(*batch_shape, T), err.reshape(batch_shape)
 
 
+@functools.lru_cache(maxsize=None)
+def _branch_tables(branch: str, device: torch.device):
+    """The branch-metric tables of `branch` on `device`, made once per
+    device (a captured CUDA graph may copy nothing from the host)."""
+    if branch == "lut":
+        idx16, H16 = _branch_pattern_lut()
+        return (torch.as_tensor(H16, device=device),             # (16, 4)
+                torch.as_tensor(idx16, dtype=torch.int64, device=device))
+    return (torch.as_tensor(_branch_sign_matrix().T.astype(np.float32),
+                            device=device),)                     # (128, 4)
+
+
 def _branch_err_fn(branch: str, B: int, device):
     """d_t (B, 4) float32 -> (64, 2, B) int32 branch metrics (s, b, B) of one
     trellis step, by the (128, 4) sign product ("matmul") or by the 16
     distinct sums and a 128-row gather ("lut"). The float32 products are
     exact (|sum| <= 508)."""
+    if branch not in ("matmul", "lut"):
+        raise ValueError(f"branch must be 'matmul' or 'lut', got {branch!r}")
+    tables = _branch_tables(branch, torch.device(device))
     if branch == "lut":
-        idx16, H16 = _branch_pattern_lut()
-        H = torch.as_tensor(H16, device=device)                  # (16, 4)
-        idx = torch.as_tensor(idx16, dtype=torch.int64, device=device)
+        H, idx = tables
 
         def branch_err(d_t):
             v = (H @ d_t.T).to(torch.int32)                      # (16, B)
             return v[idx].reshape(NB_STATES, 2, B)
-    elif branch == "matmul":
-        St = torch.as_tensor(_branch_sign_matrix().T.astype(np.float32),
-                             device=device)                      # (128, 4)
+    else:
+        St, = tables
 
         def branch_err(d_t):
             return (St @ d_t.T).to(torch.int32).reshape(NB_STATES, 2, B)
-    else:
-        raise ValueError(f"branch must be 'matmul' or 'lut', got {branch!r}")
     return branch_err
 
 

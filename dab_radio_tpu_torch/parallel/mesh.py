@@ -39,6 +39,7 @@ import torch.distributed as dist
 
 from ..models.demodulator import OFDMDemodulator, DemodCarry, _select
 from ..utils.backend import to_device
+from ..utils.graphs import CapturedProgram, use_graph
 
 STOP_AFTER = (None, "ingest", "demod", "subs", "deint", "depunct", "acs")
 AXES = ("ens", "time", "sub")
@@ -315,7 +316,9 @@ def receiver_step(device, *args, **kw):
     """The whole receiver round on `device`: multichip_receiver_step
     without a mesh, which takes the same arguments after the device and
     documents them. Returns (fn, example_args); fn(demod_carry,
-    deint_hist, iq, tail=None) -> (demod_carry, deint_hist, outputs)."""
+    deint_hist, iq, tail=None) -> (demod_carry, deint_hist, outputs). On a
+    CUDA device fn is the round captured as CUDA graphs (``cuda_graph``),
+    the counterpart of the JAX package's jitted step."""
     return multichip_receiver_step(None, *args, device=device, **kw)
 
 
@@ -331,7 +334,8 @@ def multichip_receiver_step(mesh, transmission_mode: int = 2,
                             chainback: str = "sequential",
                             viterbi_branch: str = "matmul",
                             fuse_fic: bool = False,
-                            stop_after: str = None, *, device):
+                            stop_after: str = None, *, device,
+                            cuda_graph=None):
     """The receiver round, IQ in, decoded bits out: on `device` alone
     with mesh None (``receiver_step``), else this rank's part of it.
 
@@ -386,6 +390,18 @@ def multichip_receiver_step(mesh, transmission_mode: int = 2,
     other combination, and "radix8", runs the algorithm it names as torch
     operations, far slower on a GPU (root PERF.md). radix8 goes with the
     sequential or the parallel chainback and with "matmul" only.
+
+    cuda_graph: None (the default) returns on a CUDA device the round as a
+    ``utils.graphs.CapturedProgram``, one CUDA graph for each set of input
+    shapes (a ``tail`` of None is a shape of its own), as the JAX package
+    jits its step; on the CPU it returns the plain function. True asks for
+    the capture and raises on a CPU device, False returns the plain
+    function anywhere. Every flag above is captured, ``stop_after``
+    prefixes included. A captured fn copies its arguments into static
+    buffers (a numpy round through pinned memory) and returns static
+    buffers, valid until its next call; its outputs are bit-identical to
+    the plain function's. With a mesh the round stays eager: True raises
+    NotImplementedError.
 
     With a ReceiverMesh it is this rank's part of the round over the
     ('ens', 'time', 'sub') mesh: the same body on `device`, with
@@ -450,7 +466,12 @@ def multichip_receiver_step(mesh, transmission_mode: int = 2,
     if stop_after not in STOP_AFTER:
         raise ValueError(f"stop_after must be one of {STOP_AFTER}, "
                          f"got {stop_after!r}")
+    if mesh is not None and cuda_graph:
+        raise NotImplementedError(
+            "the mesh step runs eagerly: capturing its collectives (NCCL "
+            "inside a CUDA graph) is not done yet")
     device = torch.device(device)
+    captured = mesh is None and use_graph(cuda_graph, device)
     demod = OFDMDemodulator(transmission_mode, device=device)
     dab = get_dab_params(transmission_mode)
     sizes = mesh.shape if mesh is not None else dict.fromkeys(AXES, 1)
@@ -621,7 +642,7 @@ def multichip_receiver_step(mesh, transmission_mode: int = 2,
         if fuse_fic:
             lanes[L_msc:, :fic_spec.nb_steps] = vit.depuncture(
                 fic_soft, fic_spec, dtype=torch.int8)
-            lanes[L_msc:, fic_spec.nb_steps:] = vit.SOFT_LOW
+            lanes[L_msc:, fic_spec.nb_steps:].fill_(vit.SOFT_LOW)
         if stop_after == "depunct":
             return carry, deint_hist, {"digest": _digest(lanes)}
         if stop_after == "acs":
@@ -667,16 +688,17 @@ def multichip_receiver_step(mesh, transmission_mode: int = 2,
                                  device=device))
     deint_hist = torch.zeros((B, S, DEPTH, nb_sub_bits), dtype=torch.int8,
                              device=device)
-    step.subchannel_cfgs = grid if per_stream else cfgs   # consumer metadata
-    step.per_stream = per_stream
-    step.msc_nb_data_bits = nb_data_list   # payload bits per (stream,) sub
+    fn = CapturedProgram(step, device, cuda_graph=True) if captured else step
+    fn.subchannel_cfgs = grid if per_stream else cfgs   # consumer metadata
+    fn.per_stream = per_stream
+    fn.msc_nb_data_bits = nb_data_list   # payload bits per (stream,) sub
     # pass the next block's first `tail_samples` samples as `tail`, so that
     # the last frame's timing margin reads real data
-    step.tail_samples = demod_fn.halo
-    step.stop_after = stop_after
+    fn.tail_samples = demod_fn.halo
+    fn.stop_after = stop_after
     # the global stream rows and subchannels this rank decodes
-    step.rows, step.subs = row_range, sub_range
-    return step, (carry, deint_hist, iq)
+    fn.rows, fn.subs = row_range, sub_range
+    return fn, (carry, deint_hist, iq)
 
 
 def _gather_objects(mesh: ReceiverMesh, obj, dst: int):

@@ -17,7 +17,8 @@ import torch
 from dab_radio_tpu_torch.dab import fic, msc
 from dab_radio_tpu_torch.host.feeder import DoubleBufferedFeeder
 from dab_radio_tpu_torch.kernels import viterbi_acs as K
-from dab_radio_tpu_torch.models.demodulator import (OFDMDemodulator,
+from dab_radio_tpu_torch.models.demodulator import (DemodCarry,
+                                                    OFDMDemodulator,
                                                     StreamingDemodulator)
 from dab_radio_tpu_torch.models.transmitter import (EnsembleTransmitter,
                                                     ServiceSpec)
@@ -427,3 +428,162 @@ def test_mesh_dryrun_ranks_share_the_card_over_gloo(cuda, tmp_path):
     for r in report["ranks"]:
         assert r["launches"] == K.launched(viterbi_decode_fused=2)
         assert r["collectives"]["host_copies"] > 0 and not r["loaded_jax"]
+
+
+# ---- captured CUDA graphs (utils/graphs.py) --------------------------------
+
+GRAPH_CFGS = [SubchannelConfig(0, 12, False, eep_type="A", eep_prot_level=2),
+              SubchannelConfig(12, 16, True, uep_table_index=0)]
+
+
+def _graph_rounds(cuda, F=2, nb_rounds=4):
+    """nb_rounds u8 rounds of 2 mode-II streams of F frames from the port's
+    transmitter, with a carrier offset and noise; the last two without a
+    tail (the key of their own is captured and replayed)."""
+    tx = EnsembleTransmitter(2, services=[
+        ServiceSpec(0xF100 + i, i + 1, f"S{i}", c)
+        for i, c in enumerate(GRAPH_CFGS)], device=cuda)
+    fs = 49152
+    iq = tx.generate(nb_rounds * F + 2)
+    rng = np.random.default_rng(8)
+    n = np.arange(iq.shape[0])
+    noise = rng.normal(size=(2, iq.shape[0])) * np.abs(iq).std() * 0.07
+    iq = iq * np.exp(2j * np.pi * 0.3 / 512 * n) + noise[0] + 1j * noise[1]
+    iq = (iq / np.abs(iq).max() * 0.5).astype(np.complex64)
+    u8 = np.clip(np.round(iq.view(np.float32) * 127.5 + 127.5), 0, 255
+                 ).astype(np.uint8)
+    u8 = np.stack([u8, np.roll(u8, 2 * fs)])
+    halo = OFDMDemodulator(2, device=cuda).window_len - fs
+    n = 2 * F * fs
+    return [(u8[:, n * r:n * (r + 1)],
+             u8[:, n * (r + 1):n * (r + 1) + 2 * halo]
+             if r < nb_rounds - 2 else None) for r in range(nb_rounds)]
+
+
+def _cloned(x):
+    return [t.clone() if torch.is_tensor(t) else t
+            for t in torch.utils._pytree.tree_leaves(x)]
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(viterbi="tiled"), dict(block_tracking=True),
+    dict(fuse_fic=False), dict(chainback="parallel"), dict(chainback="fused"),
+    dict(viterbi_branch="lut"), dict(viterbi="radix8"),
+    dict(stop_after="deint"), dict(stop_after="acs")],
+    ids=lambda kw: "-".join(map(str, kw.values())) or "exact")
+def test_captured_round_matches_eager(cuda, kw):
+    """receiver_step captured (the default on the card) against
+    cuda_graph=False over 4 rounds, two of them without a tail: every
+    output and the state bit-identical, and K1's launches counted once a
+    round on replays as in the eager run."""
+    args = dict(subchannels_per_shard=2, ensembles_per_shard=2, ingest="u8",
+                subchannel_cfgs=GRAPH_CFGS, fuse_fic=True)
+    args.update(kw)
+    graph, (gc, gh, _) = receiver_step(cuda, 2, 2, **args)
+    eager, (ec, eh, _) = receiver_step(cuda, 2, 2, cuda_graph=False, **args)
+    assert graph.captured and graph.tail_samples == eager.tail_samples
+    gstate, estate = (gc, gh), (ec, eh)
+    for blk, tail in _graph_rounds(cuda):
+        K.reset_launches()
+        *estate, eout = eager(*estate, blk, tail)
+        torch.cuda.synchronize()
+        want_launches = dict(K.LAUNCHES), dict(K.ACS_LAUNCHES_BY_T)
+        K.reset_launches()
+        *gstate, gout = graph(*gstate, blk, tail)
+        torch.cuda.synchronize()
+        assert (dict(K.LAUNCHES), dict(K.ACS_LAUNCHES_BY_T)) == want_launches
+        # the captured state goes back in as it came out: the program
+        # copies it into its inputs before the next replay
+        for a, b in zip(_cloned((gstate, gout)), _cloned((estate, eout))):
+            assert (a is None and b is None) or torch.equal(a, b)
+    assert graph.graphs == 2
+
+
+def test_captured_demod_matches_eager(cuda):
+    """frame_step, frame_step_batch and frame_scan captured (the default on
+    the card) against cuda_graph=False, three calls each, each call's carry
+    fed to the next: bit-identical, and the results are copies (a kept
+    carry survives the next call)."""
+    graph = OFDMDemodulator(2, device=cuda)
+    eager = OFDMDemodulator(2, device=cuda, cuda_graph=False)
+    assert graph._step_program.captured and not eager._step_program.captured
+    blk, _ = _graph_rounds(cuda, F=4, nb_rounds=3)[0]
+    iq = (blk.astype(np.float32) - 127.5) / np.float32(127.5)
+    iq = iq.view(np.complex64)
+    W, A = graph.window_len, graph.frame_advance
+    for batch in ((), (2,)):
+        rows = iq if batch else iq[0]
+        carry = {d: DemodCarry.init(batch, device=cuda) for d in ("g", "e")}
+        kept = []
+        for f in range(3):
+            win = rows[..., f * A:f * A + W]
+            gc, gout = graph.frame_step_batch(carry["g"], win) if batch \
+                else graph.frame_step(carry["g"], win)
+            ec, eout = eager._frame_step_impl(carry["e"], eager._as_iq(win))
+            for a, b in zip(_cloned((gc, gout)), _cloned((ec, eout))):
+                assert torch.equal(a, b)
+            kept.append((gc, _cloned(gc)))
+            carry = {"g": gc, "e": ec}
+        for held, copy in kept:
+            assert all(torch.equal(a, b) for a, b in zip(held, copy))
+        for nb in (2, 3):
+            buf = rows[..., :nb * A + W]
+            c0 = DemodCarry.init(batch, device=cuda)
+            for _ in range(2):
+                got = graph.frame_scan(nb, c0, buf)
+                want = eager.frame_scan(nb, c0, buf)
+                for a, b in zip(_cloned(got), _cloned(want)):
+                    assert torch.equal(a, b)
+    assert graph._step_program.graphs == 2 and graph._scan_program.graphs == 4
+
+
+def test_captured_fused_fleet_matches_eager(cuda):
+    """FusedFleet with its round captured (the default on the card) against
+    cuda_graph=False, deferred fetch: the same FIB and subchannel bytes and
+    health signals each round, one fused K1 launch a round counted across
+    the replays, and the state read back equal."""
+    from dab_radio_tpu_torch.models.fused_fleet import FusedFleet
+    fleets = {g: FusedFleet(2, GRAPH_CFGS, 2, 2, device=cuda, cuda_graph=g)
+              for g in (None, False)}
+    assert fleets[None].program.captured
+    assert not fleets[False].program.captured
+    seen = {g: [] for g in fleets}
+    for g, fleet in fleets.items():
+        fleet._consume = lambda fib, msc, g=g: seen[g].append(
+            (fib.copy(), msc.copy()))
+    rounds = _graph_rounds(cuda)
+    for g, fleet in fleets.items():
+        K.reset_launches()
+        for blk, tail in rounds:
+            fleet.process_round(blk, defer_fetch=True, tail_u8=tail)
+        fleet.flush()
+        torch.cuda.synchronize()
+        assert K.LAUNCHES == K.launched(viterbi_decode_fused=len(rounds))
+    assert len(seen[None]) == len(rounds)
+    for (f1, m1), (f2, m2) in zip(seen[None], seen[False]):
+        assert np.array_equal(f1, f2) and np.array_equal(m1, m2)
+    (ca, ha), (cb, hb) = fleets[None].state(), fleets[False].state()
+    assert all(np.array_equal(x, y) for x, y in zip(ca, cb))
+    assert np.array_equal(ha, hb)
+    assert fleets[None].program.graphs == 2
+
+
+def test_released_program_captures_again(cuda):
+    """release() frees the graphs and their pool; the next call of a shape
+    warms up and captures again, with the same outputs as before."""
+    args = dict(subchannels_per_shard=2, ensembles_per_shard=2, ingest="u8",
+                subchannel_cfgs=GRAPH_CFGS, fuse_fic=True)
+    graph, (c, h, _) = receiver_step(cuda, 2, 2, **args)
+    blk, tail = _graph_rounds(cuda)[0]
+    first = _cloned(graph(c, h, blk, tail))
+    again = _cloned(graph(c, h, blk, tail))            # a replay
+    graph.release()
+    assert graph.graphs == 0
+    K.reset_launches()
+    after = _cloned(graph(c, h, blk, tail))            # warm-up, capture
+    replay = _cloned(graph(c, h, blk, tail))
+    torch.cuda.synchronize()
+    assert graph.graphs == 1
+    assert K.LAUNCHES == K.launched(viterbi_decode_fused=2)
+    for x in (again, after, replay):
+        assert all(torch.equal(a, b) for a, b in zip(first, x))

@@ -404,8 +404,11 @@ def test_round_plot_matches_jax(caps, staged):
     fc, ff = np.float32([1e-4, 1300.0 / 2.048e6]), np.float32([0.0, 2e-5])
 
     def plot(mod, carry, rows):
+        # the JAX fleet holds its carry as _carry, the port's hands out a
+        # copy of the one its captured program holds as carry
         fleet = types.SimpleNamespace(N=2, _mode=2, device=torch.device("cpu"),
-                                      _carry=carry, total_rounds=5)
+                                      _carry=carry, carry=carry,
+                                      total_rounds=5)
         box = {"plot": None, "plot_wanted": 1.0, "plot_built": 0.0,
                "plot_stream": 7}
         mod._maybe_build_plot(fleet, box, rows)

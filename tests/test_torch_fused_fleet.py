@@ -256,7 +256,7 @@ def test_state_carried_over_from_jax(streams):
     blk = streams[:, 2 * chunk:3 * chunk]
     tail = streams[:, 3 * chunk:3 * chunk + tb]
     jc, jh, jout = jfleet.step(jfleet._carry, jfleet._hist, blk, tail)
-    tc, th, tout = tfleet.step(tfleet._carry, tfleet._hist, blk, tail)
+    tc, th, tout = tfleet.step(*tfleet.program.read_state(), blk, tail)
     for k in ("fib_bits", "msc_bits", "offsets"):
         np.testing.assert_array_equal(tout[k].numpy(), np.asarray(jout[k]))
     assert [int(x) for x in tc.total_frames.ravel()] == [12, 12]
@@ -407,7 +407,7 @@ def test_kinds_and_device_arguments():
         TFleet(1, tcfgs(AUDIO_CFGS))
     f = TFleet(2, tcfgs(AUDIO_CFGS), MODE, 2, device="cpu",
                subchannel_kinds=["mp2"])
-    assert f.device == CPU and f._carry.freq_fine.device == CPU
+    assert f.device == CPU and f.carry.freq_fine.device == CPU
     assert f._kinds == [["mp2", "audio"]] * 2
     f = TFleet(2, tcfgs(AUDIO_CFGS), MODE, 2, device=CPU,
                subchannel_kinds=[["audio", "mp2"], [("packet", 3, 1)]])

@@ -4,7 +4,8 @@ interpreter, import every module of the package and run its main path
 decode variants, then MultiStreamDemodulator into ReceiverFleet, then
 simulate_transmitter, ber_sweep and radio_app, then the monitors tui,
 monitor and webmon's plot and state, and rs_syndromes_device, on the CPU)
-for a few frames, then check sys.modules; the same in every rank of the
+for a few frames, with the captured programs of utils/graphs.py running
+eagerly there, then check sys.modules; the same in every rank of the
 mesh dry run (``parallel/dryrun.py``, two gloo ranks on the CPU); and no
 source file of the port imports either."""
 
@@ -28,6 +29,11 @@ SCRIPT = textwrap.dedent("""
                                    "dab_radio_tpu_torch."):
         importlib.import_module(m.name)
     assert "jax" not in sys.modules, "import loaded jax"
+    # the captured programs (utils/graphs.py) run eagerly on the CPU
+    from dab_radio_tpu_torch.utils.graphs import CapturedProgram
+    prog = CapturedProgram(torch.neg, "cpu")
+    assert not prog.captured and torch.equal(prog(torch.ones(2)),
+                                             -torch.ones(2))
 
     from dab_radio_tpu_torch.host.native import iq_quantize_u8
     from dab_radio_tpu_torch.params import SubchannelConfig
