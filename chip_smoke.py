@@ -21,7 +21,10 @@ It exits non-zero, printing no result, when there is no card. Phases:
    byte-exact with desync=0, no RS or AU-CRC error and no firecode error
    past superframe sync, and the fused Viterbi kernel must have run for
    both the FIC and the MSC, once per decode, and the kernel pair not at
-   all;
+   all; the decodes run as captured programs (the FIC decode, a persistent
+   decode group a protection shape), and the demodulated frames go through
+   a second receiver with cuda_graph=False: every FIB and MSC payload equal,
+   with each way's wall, graphs and reserved memory;
 5. the long-trellis path: one 864-CU EEP 4-A subchannel (1728 kbit/s, a
    trellis of 41,478 steps) from the port's MSCEncoder, with noise, through
    the port's MSCDecoder on the card; every payload byte-exact, decoded by
@@ -67,11 +70,16 @@ It exits non-zero, printing no result, when there is no card. Phases:
    MultiStreamDemodulator (u8 ingest, 4 frames a step, soft bits kept on the
    card) into ReceiverFleet (pipeline depth 2): every access unit
    byte-exact, no desync, and a round one fused launch for the stacked FIC
-   and one for each protection shape of the MSC;
+   and one for each protection shape of the MSC; then the round program of
+   MultiStreamDemodulator (dequantise, scan, masked merge) against
+   cuda_graph=False on the same captures: every frame and the carry
+   bit-identical, each way's step times;
 11. the multi-GPU receiver on the one card: multichip_receiver_step over a
-   process group of one rank (NCCL) on the 16 streams of the fleet path,
-   every output and the state equal to receiver_step's, one fused launch a
-   round, and FusedFleet on that mesh with every access unit byte-exact;
+   process group of one rank (NCCL), captured with its collectives, on the
+   16 streams of the fleet path, every output and the state equal to
+   receiver_step's and to the same mesh step with cuda_graph=False, one
+   fused launch a round, the collectives counted alike on replays, and
+   FusedFleet on that mesh (captured) with every access unit byte-exact;
    then 4 rank processes on a (1, 2, 2) mesh over gloo, all on the card
    (this script with --mesh-rank): the dry run of parallel/dryrun.py,
    bit-exact against the one-device decoders with two fused launches a rank
@@ -89,7 +97,9 @@ It exits non-zero, printing no result, when there is no card. Phases:
    ChannelModel (an echo and AWGN), then radio_app on the card (18 labels,
    no RS or AU-CRC error, non-silent audio where libavcodec is present) and
    radio_cli --scraper-enable (18 slideshows byte-equal to those sent,
-   desync 0), every decode one fused K1 launch;
+   desync 0), every decode one fused K1 launch; then the modulator's two
+   programs and acquisition's (null-dip search, L1) captured against
+   cuda_graph=False, bit for bit;
 13. ber_sweep on the card (phase ber): no lock at 2 dB, clean FIC decodes
    at 14 dB with AWGN, a guard-edge echo and clock drift, each FIC decode
    one fused K1 launch of 4 x 774;
@@ -132,7 +142,10 @@ measures instead: it builds the kernels, makes the same ensemble over more
 frames and decodes it with radio_cli on the card once cold and five times
 warm (wall time and real-time factor), once with the stage spans on, and
 once under torch.profiler (device busy share, device time by kernel), after
-the fleet round's stop_after ladder in ms a round, eager and captured. Then
+the fleet round's stop_after ladder in ms a round, eager and captured, and
+the capture's frames through a DabReceiver captured and one eager with the
+stage spans on (ms a frame of radio/fic_decode and radio/msc_channels,
+graphs, reserved memory). Then
 the fleet path: 16 streams through FusedFleet, 5 warm rounds under
 torch.profiler (round wall, device busy share, device time by kernel). The
 numbers are printed and written to build/chip_smoke/measure.json.
@@ -140,7 +153,9 @@ numbers are printed and written to build/chip_smoke/measure.json.
     python3 chip_smoke.py --mesh-only --mesh-backend nccl
 
 runs the captures and the 4 rank processes of phase 11 alone, over NCCL
-with a card a rank (4 cards).
+with a card a rank (4 cards): there the dry run's step and the fleet's
+round are captured with their collectives (the halo's send/recv, the
+gathers), and the dry run replays its step once against its first call.
 """
 
 import argparse
@@ -201,6 +216,7 @@ GRAPH_PROFILE_TIMEOUT_S = 300
 VARIANT_STREAMS = 2
 VARIANT_K = 4
 BATCHED_STREAMS = 4
+DECODE_WARM = 3             # frames before the main path's decodes are steady
 BATCHED_K = 4
 # the tx phase: the main path's ensemble from simulate_transmitter with
 # X-PAD repeated as a carousel (the FIC announces services 12 to 18 in the
@@ -729,7 +745,106 @@ def main_path(dev, capture, sent):
     log(f"main path: frames={frames} wall={wall:.3f} s air={air:.3f} s "
         f"real-time factor={air / wall:.3f} access_units={nb_aus} "
         f"(all byte-exact) launches={launches} by T={by_t}")
+    decodes_equal(dev, capture)
     return launches
+
+
+def _graphs_of(programs) -> int:
+    """The CUDA graphs that the programs hold (CapturedProgram.graphs)."""
+    return sum(p.graphs for p in programs)
+
+
+def _receiver_programs(rx):
+    """A DabReceiver's programs: its FIC decode, its decode groups' and its
+    channels' decoders'."""
+    return ([rx.fic._program] + [g.program for g in rx._groups.values()]
+            + [ch.msc._program for ch in rx.channels.values()])
+
+
+def _tapped_receiver(dev, cuda_graph, record):
+    """A DabReceiver on dev whose FIBs and MSC payloads go to `record`."""
+    from dab_radio_tpu_torch.models.receiver import DabReceiver
+    rx = DabReceiver(1, device=dev, cuda_graph=cuda_graph)
+    inner = rx.fic.decode_fic
+
+    def decode_fic(bits):
+        fibs, err = inner(bits)
+        record.append(("fic", fibs))
+        return fibs, err
+    rx.fic.decode_fic = decode_fic
+    rx.on_audio_channel.append(
+        lambda sid, ch: ch.events.on_frame_data.append(
+            lambda p: record.append((sid, bytes(p)))))
+    return rx
+
+
+def _capture_frames(dev, capture):
+    """The soft-bit frames of a u8 capture, from StreamingDemodulator on
+    the card."""
+    from dab_radio_tpu_torch.host.native import iq_convert
+    from dab_radio_tpu_torch.models.demodulator import (OFDMDemodulator,
+                                                        StreamingDemodulator)
+    sd = StreamingDemodulator(OFDMDemodulator(1, device=dev))
+    with open(capture, "rb") as f:
+        return sd.process(iq_convert(f.read(), "u8"))
+
+
+def decodes_equal(dev, capture, profiled=False):
+    """The main path's FIC and MSC decodes as programs (captured, the
+    default) against cuda_graph=False: the capture's frames through two
+    DabReceivers, every FIB and MSC payload equal and in the same order.
+    Returns, for each way, the receiver loop's wall, the graphs its
+    programs hold, its decode groups and the reserved device memory before
+    and after it; with `profiled`, also the stage spans in ms a frame and
+    the loop's wall over the frames after the first DECODE_WARM (by then
+    the FIC has named every channel and their group is captured), each way
+    twice, in the order captured, eager, eager, captured."""
+    import torch
+    from dab_radio_tpu_torch.utils.profiler import get_profiler
+    frames = _capture_frames(dev, capture)
+    records, info = [], {}
+    prof = get_profiler()
+    ways = [("captured", None), ("eager", False)]
+    for way, graph in ways + (ways[::-1] if profiled else []):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_reserved(dev)
+        records.append([])
+        rx = _tapped_receiver(dev, graph, records[-1])
+        t0 = time.perf_counter()
+        for k, f in enumerate(frames):
+            if k == DECODE_WARM:
+                torch.cuda.synchronize()
+                t_warm = time.perf_counter()
+                prof.reset()
+                prof.enabled = profiled
+            rx.process_frame(f)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        prof.enabled = False
+        run = {"wall_s": t_end - t0,
+               "graphs": _graphs_of(_receiver_programs(rx)),
+               "groups": [len(g.decoders) for g in rx._groups.values()],
+               "reserved_mb": [before / 2**20,
+                               torch.cuda.memory_reserved(dev) / 2**20]}
+        if profiled:
+            steady = len(frames) - DECODE_WARM
+            run["steady_ms_a_frame"] = (t_end - t_warm) * 1e3 / steady
+            run["spans_ms_a_frame"] = {k: v["total_us"] / 1e3 / steady
+                                       for k, v in prof.table().items()}
+        info.setdefault(way, []).append(run)
+        check(len(rx.channels) == NB_SERVICES
+              and all(p.captured == (graph is None)
+                      for p in _receiver_programs(rx)),
+              f"{way} receiver: {len(rx.channels)} channels")
+    prof.reset()
+    check(all(r == records[0] for r in records),
+          "the captured decodes' FIBs or payloads differ from the eager "
+          "receiver's")
+    nb_fib = sum(len(x) for k, x in records[0] if k == "fic")
+    log(f"main path decodes: {len(frames)} frames, {nb_fib} FIBs and "
+        f"{len(records[0]) - len(frames)} MSC payloads equal captured "
+        f"and eager; " + json.dumps(info))
+    return info
 
 
 def long_path(dev, mode="exact"):
@@ -1456,8 +1571,51 @@ def batched_path(dev, paths, sents):
     log("batched path: demodulator step s = "
         + json.dumps([round(x, 4) for x in step_s])
         + ", process_frames round s = "
-        + json.dumps([round(x, 4) for x in round_s]))
+        + json.dumps([round(x, 4) for x in round_s])
+        + f"; graphs: demodulator {ms.program.graphs}, fleet FIC "
+        f"{fleet._fic_decode.graphs}, decode groups "
+        f"{_graphs_of(g.program for g in fleet._groups.values())}")
+    multistream_equal(dev, paths)
     return launches
+
+
+def multistream_equal(dev, paths):
+    """MultiStreamDemodulator's round captured (the default) against
+    cuda_graph=False on the batched path's captures: the same frames (bits
+    kept on the card) bit for bit and the same carry; each way's step
+    times and the reserved memory."""
+    import torch
+    from dab_radio_tpu_torch.models.demodulator import OFDMDemodulator
+    from dab_radio_tpu_torch.models.multistream import MultiStreamDemodulator
+    runs, info = {}, {}
+    for way, graph in (("captured", None), ("eager", False)):
+        ms = MultiStreamDemodulator(
+            OFDMDemodulator(1, device=dev), BATCHED_STREAMS,
+            frames_per_step=BATCHED_K, ingest="u8", fetch_bits=False,
+            device=dev, cuda_graph=graph)
+        for b in range(BATCHED_STREAMS):
+            ms.push(b, np.fromfile(paths[b], np.uint8))
+        frames, steps = [], []
+        while True:
+            t0 = time.perf_counter()
+            res = ms.step()
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+            if not res:
+                break
+            frames += res
+        runs[way] = frames, ms.carry
+        info[way] = {"step_s": steps, "graphs": ms.program.graphs,
+                     "reserved_mb": torch.cuda.memory_reserved(dev) / 2**20}
+        check(ms.program.captured == (graph is None), f"{way} round program")
+    (a, ca), (b, cb) = runs["captured"], runs["eager"]
+    check([i for i, _ in a] == [i for i, _ in b] and len(a) >= BATCHED_STREAMS
+          * (NB_FRAMES - 3)
+          and all(torch.equal(x, y) for (_, x), (_, y) in zip(a, b))
+          and all(torch.equal(x, y) for x, y in zip(ca, cb)),
+          "the captured batched round's frames or carry differ from eager")
+    log(f"batched round program: {len(a)} frames bit-identical captured and "
+        f"eager, carry equal; " + json.dumps(info))
 
 
 def _events_ms(fn):
@@ -1508,7 +1666,12 @@ def mesh_world1(dev, paths, sents, backend="nccl"):
         one, (c1, h1, _) = M.receiver_step(dev, 1, FLEET_K, **kw)
         many, (c2, h2, _) = M.multichip_receiver_step(mesh, 1, FLEET_K,
                                                       device=dev, **kw)
-        step_ms, one_ms, launches = [], [], []
+        eager, (c3, h3, _) = M.multichip_receiver_step(
+            mesh, 1, FLEET_K, device=dev, cuda_graph=False, **kw)
+        check(backend != "nccl" or (many.captured and fleet.program.captured),
+              "the mesh step over NCCL is not captured")
+        step_ms, one_ms, eager_ms, launches = [], [], [], []
+        calls = {"captured": [], "eager": []}
         aus = {}
         fleet.on_access_unit.append(
             lambda b, s, i, n, au, h: aus.setdefault((b, s), []).append(
@@ -1520,22 +1683,32 @@ def mesh_world1(dev, paths, sents, backend="nccl"):
                          for a, b in ((r * chunk, (r + 1) * chunk),
                                       ((r + 1) * chunk, (r + 1) * chunk + tb)))
             K.reset_launches()
+            n0 = M.COLLECTIVES["calls"]
             (c2, h2, o2), ms = _events_ms(lambda: many(c2, h2, blk, tail))
             launches.append(dict(K.LAUNCHES))
             step_ms.append(ms)
+            calls["captured"].append(M.COLLECTIVES["calls"] - n0)
+            n0 = M.COLLECTIVES["calls"]
+            (c3, h3, o3), ms = _events_ms(lambda: eager(c3, h3, blk, tail))
+            eager_ms.append(ms)
+            calls["eager"].append(M.COLLECTIVES["calls"] - n0)
             (c1, h1, o1), ms = _events_ms(lambda: one(c1, h1, blk, tail))
             one_ms.append(ms)
             for k in o1:
-                check(torch.equal(o1[k], o2[k]),
+                check(torch.equal(o1[k], o2[k]) and torch.equal(o3[k], o2[k]),
                       f"mesh step's {k} of round {r} differs from "
-                      "receiver_step's")
-            check(all(torch.equal(a, b) for a, b in zip(c1, c2))
-                  and torch.equal(h1, h2),
+                      "receiver_step's or the eager mesh step's")
+            check(all(torch.equal(a, b) and torch.equal(a, e)
+                      for a, b, e in zip(c1, c2, c3))
+                  and torch.equal(h1, h2) and torch.equal(h3, h2),
                   f"mesh step's state after round {r} differs")
             fleet.process_round(blk, tail_u8=tail)
         check(all(n == launched(viterbi_decode_fused=1) for n in launches),
               f"the mesh step did not launch K1 once a round: {launches}")
+        check(calls["captured"] == calls["eager"] and min(calls["eager"]) > 0,
+              f"collectives counted a round, captured and eager: {calls}")
         coll = dict(M.COLLECTIVES)
+        graphs = {"step": many.graphs, "fleet": fleet.program.graphs}
         nb_aus = _check_fleet_aus(aus, sents, "mesh fleet")
     finally:
         distributed.shutdown()
@@ -1543,9 +1716,11 @@ def mesh_world1(dev, paths, sents, backend="nccl"):
         f"{FLEET_K} frames, {len(step_ms)} rounds equal to receiver_step in "
         f"every output and the state; FusedFleet on the mesh: {nb_aus} "
         f"access units byte-exact; K1 a round {launches[-1]}; mesh step "
-        f"ms = {json.dumps([round(x, 3) for x in step_ms])}, receiver_step "
+        f"captured ms = {json.dumps([round(x, 3) for x in step_ms])}, eager "
+        f"ms = {json.dumps([round(x, 3) for x in eager_ms])}, receiver_step "
         f"ms = {json.dumps([round(x, 3) for x in one_ms])}; collectives "
-        f"{json.dumps(coll)}")
+        f"{json.dumps(coll)}, calls a round {json.dumps(calls)}; graphs "
+        f"{json.dumps(graphs)}")
     return launches[-1]
 
 
@@ -1618,6 +1793,8 @@ def mesh_rank(rank, init, backend):
         ms_report = _batched_on_mesh(dev, paths)
         report = {"rank": rank, "coords": mesh.coords, "device": str(dev),
                   "rows": fleet.rows, "launches": fleet_launches,
+                  "captured": fleet.program.captured,
+                  "graphs": fleet.program.graphs,
                   "batched": ms_report,
                   "collectives": dict(M.COLLECTIVES), "round_wall_s": walls,
                   "health": (fleet.drift_correction.tolist(),
@@ -1696,9 +1873,14 @@ def mesh_ranks(sents, backend="gloo"):
           and len(ranks) == MESH_RANKS == len(fleet)
           and report["fibs"] > 0 and report["payloads"] > 0,
           f"dry run report {report}")
+    nccl = backend == "nccl"
     for r in ranks:
         check(r["launches"] == launched(viterbi_decode_fused=2),
               f"rank {r['rank']} launched {r['launches']} in the dry run")
+        # over NCCL the dry run's step is captured and replayed once
+        check(r["captured"] == nccl and r["replay_equal"] in (None, True),
+              f"rank {r['rank']}'s dry-run step: captured {r['captured']}, "
+              f"replay equal {r['replay_equal']}")
         check(not r["loaded_jax"], f"rank {r['rank']} loaded {r['loaded_jax']}")
     nb_rounds = (NB_FRAMES - 1) // FLEET_K
     leaders = [p for p in fleet if p["aus"] is not None]
@@ -1707,6 +1889,9 @@ def mesh_ranks(sents, backend="gloo"):
     for p in fleet:
         check(p["launches"] == launched(viterbi_decode_fused=nb_rounds),
               f"rank {p['rank']} launched {p['launches']} in the fleet")
+        check(p["captured"] == nccl and p["graphs"] == (1 if nccl else 0),
+              f"rank {p['rank']}'s fleet: captured {p['captured']}, "
+              f"{p['graphs']} graphs")
         check(p["health"] == fleet[0]["health"] and p["health"][2] == nb_rounds
               and min(p["health"][1]) > 0,
               f"rank {p['rank']}'s health {p['health']} is not rank 0's "
@@ -1744,9 +1929,11 @@ def mesh_ranks(sents, backend="gloo"):
                        round(p["batched"]["wall_s"], 3)) for p in fleet]))
     for r, p in zip(ranks, fleet):
         log(f"  rank {r['rank']} {r['coords']}: dry run K1 {r['launches']}, "
+            f"captured {r['captured']} (replay equal {r['replay_equal']}), "
             f"step {r['step_ms']} ms between events, wall {r['wall_s']:.4f} "
             f"s, collectives {json.dumps(r['collectives'])}; fleet K1 "
-            f"{p['launches']}, round walls "
+            f"{p['launches']}, captured {p['captured']} ({p['graphs']} "
+            f"graphs), round walls "
             f"{json.dumps([round(x, 4) for x in p['round_wall_s']])} s, "
             f"collectives {json.dumps(p['collectives'])}")
     return fleet[0]["launches"]
@@ -1889,7 +2076,59 @@ def tx_path(dev):
         f"{frames} frames; K1 {launches} by T {by_t} (radio_app "
         f"{by_t_app}); walls s = "
         + json.dumps({k: round(v, 3) for k, v in walls.items()}))
+    modulator_equal(dev)
     return launches
+
+
+def modulator_equal(dev):
+    """The modulator's programs and acquisition's (captured, the default)
+    against cuda_graph=False: modulate_frame on one frame and on a batch of
+    two, modulate_reference_bytes, and the null-dip search and L1 level
+    over the frames' IQ, 3 calls each (2 replays), bit for bit."""
+    import torch
+    from dab_radio_tpu_torch.models.demodulator import OFDMDemodulator
+    from dab_radio_tpu_torch.models.modulator import OFDMModulator
+    mods = {g: OFDMModulator(1, dev, cuda_graph=g) for g in (None, False)}
+    demods = {g: OFDMDemodulator(1, device=dev, cuda_graph=g)
+              for g in (None, False)}
+    p = mods[None].params
+    rng = np.random.default_rng(SEED)
+    ms = {g: [] for g in mods}
+    for shape in ((), (2,), (), (2,), (), (2,)):
+        bits = rng.integers(0, 2, shape + (p.nb_data_symbols,
+                                           2 * p.nb_data_carriers)
+                            ).astype(np.uint8)
+        data = rng.integers(0, 256, p.nb_data_symbols * p.nb_data_carriers
+                            // 4).astype(np.uint8)
+        out = {}
+        for g, mod in mods.items():
+            out[g], t = _events_ms(lambda: mod.modulate_frame(bits))
+            ms[g].append(t)
+        check(torch.equal(out[None], out[False]),
+              "captured modulate_frame differs from eager")
+        check(np.array_equal(mods[None].modulate_reference_bytes(data),
+                             mods[False].modulate_reference_bytes(data)),
+              "captured modulate_reference_bytes differs from eager")
+        iq = out[None].reshape(-1)
+        W = demods[None].window_len
+        for lo in ((0, p.nb_null_period, W // 2) if shape else ()):
+            win = iq[lo:lo + W]
+            l1 = [demods[g].l1(win) for g in demods]
+            acq = [demods[g].acquire(win, x) for g, x in zip(demods, l1)]
+            check(torch.equal(*l1) and all(torch.equal(a, b)
+                                           for a, b in zip(*acq)),
+                  "captured acquisition differs from eager")
+    graphs = {"modulate_frame": mods[None]._bits_program.graphs,
+              "modulate_reference_bytes": mods[None]._bytes_program.graphs,
+              "acquire": demods[None]._acquire_program.graphs,
+              "l1": demods[None]._l1_program.graphs}
+    check(graphs == {"modulate_frame": 2, "modulate_reference_bytes": 1,
+                     "acquire": 1, "l1": 1}, f"graphs {graphs}")
+    log(f"modulator and acquisition programs: equal captured and eager; "
+        f"modulate_frame ms between events captured "
+        f"{json.dumps([round(x, 3) for x in ms[None]])}, eager "
+        f"{json.dumps([round(x, 3) for x in ms[False]])}; graphs "
+        + json.dumps(graphs))
 
 
 def ber_path(dev):
@@ -2585,6 +2824,7 @@ def measure(dev, nb_frames):
 
     out = {"frames": nb_frames, "air_s": air, "device": torch.cuda.get_device_name(0)}
     out["stop_after_ms"] = measure_ladder(dev, paths)
+    out["decodes"] = decodes_equal(dev, paths[0], profiled=True)
     K.reset_launches()
     out["first_wall_s"] = run()
     out["launches_per_run"] = dict(K.LAUNCHES)

@@ -3,7 +3,9 @@
 Decode: per CIF, one FIB group of soft bits -> depuncture (PI_16/PI_15/PI_X)
 -> Viterbi -> energy-dispersal descramble -> split into FIBs -> CRC16 gate.
 The Viterbi runs on the decoder's device, batched over all CIF groups of a
-frame; byte-level work stays on the host.
+frame, as one program (``fic_program``: a captured CUDA graph on a CUDA
+device, one for each number of groups, as the JAX package jits it);
+byte-level work stays on the host.
 
 Encode: FIGs -> FIBs + CRC -> scramble -> convolutional encode -> puncture
 -> ideal soft bits (numpy, for closed-loop tests and the transmitter).
@@ -20,6 +22,7 @@ from ..params import fic_puncture_schedule, get_dab_params
 from ..params.puncture import build_puncture_mask
 from ..ops import viterbi as vit
 from ..utils.backend import to_device
+from ..utils.graphs import CapturedProgram, as_argument
 
 FIB_BYTES = 32
 FIB_DATA_BYTES = 30
@@ -41,10 +44,24 @@ def _fic_decode_fn():
     return spec, lambda soft: vit.viterbi_decode(soft, spec)
 
 
-class FICDecoder:
-    """Soft FIC bits of one frame -> list of CRC-valid 30-byte FIB payloads."""
+def fic_program(device, cuda_graph=None) -> CapturedProgram:
+    """The FIC decode on `device` as a program (``utils/graphs.py``; see
+    there for cuda_graph): soft (G, nb_in) int8, a numpy array or a tensor
+    -> (bits (G, 768), path errors (G,)), one graph for each G. Its outputs
+    are valid until its next call."""
+    device = torch.device(device)
+    _, decode = _fic_decode_fn()
+    return CapturedProgram(
+        lambda soft: decode(to_device(soft, device, np.int8)), device,
+        cuda_graph=cuda_graph)
 
-    def __init__(self, transmission_mode: int, device: torch.device):
+
+class FICDecoder:
+    """Soft FIC bits of one frame -> list of CRC-valid 30-byte FIB payloads.
+    cuda_graph: see ``fic_program``."""
+
+    def __init__(self, transmission_mode: int, device: torch.device,
+                 cuda_graph=None):
         self.dab = get_dab_params(transmission_mode)
         if self.dab.nb_fib_cif_bits != 2304:
             raise NotImplementedError(
@@ -52,28 +69,34 @@ class FICDecoder:
         self.spec = fic_spec()
         self.nb_groups = self.dab.nb_cifs
         self.device = torch.device(device)
+        self.cuda_graph = cuda_graph
+        self._program = fic_program(self.device, cuda_graph)
 
     def __getstate__(self):
         return {"dab": self.dab, "nb_groups": self.nb_groups,
-                "device": str(self.device)}
+                "device": str(self.device), "cuda_graph": self.cuda_graph}
 
     def __setstate__(self, state):
         self.dab = state["dab"]
         self.nb_groups = state["nb_groups"]
         self.device = torch.device(state["device"])
         self.spec = fic_spec()
+        self.cuda_graph = state.get("cuda_graph")
+        self._program = fic_program(self.device, self.cuda_graph)
 
     def to(self, device) -> "FICDecoder":
-        self.device = torch.device(device)
+        if torch.device(device) != self.device:
+            self.device = torch.device(device)
+            self._program = fic_program(self.device, self.cuda_graph)
         return self
 
     def decode_fic(self, fic_soft_bits: np.ndarray):
         """fic_soft_bits: (nb_fic_bits,) int8. Returns (fibs, errors) where
         fibs is a list of CRC-valid FIB data payloads (bytes, 30 each)."""
-        groups = to_device(fic_soft_bits, self.device, np.int8).reshape(
+        groups = as_argument(fic_soft_bits, np.int8).reshape(
             self.nb_groups, -1)
         assert groups.shape[1] == self.spec.nb_in
-        bits, path_err = vit.viterbi_decode(groups, self.spec)
+        bits, path_err = self._program(groups)
         return self.postprocess(bits.cpu().numpy().astype(np.uint8),
                                 path_err.cpu().numpy())
 

@@ -5,9 +5,10 @@ plus a timing margin, with all synchronisation state in an explicit carry
 of tensors on the demodulator's device. The host driver only moves a read
 pointer (acquisition / per-frame timing drift). A leading batch axis on the
 window and carry demodulates many streams at once (``frame_step_batch``).
-On a CUDA device the frame step and the K-frame scan run as captured CUDA
-graphs (``utils/graphs.py``), one for each window shape and frame count,
-as the JAX package jits them.
+On a CUDA device the frame step, the K-frame scan, the acquisition's
+null-dip search and its L1 level run as captured CUDA graphs
+(``utils/graphs.py``), one for each input shape and frame count, as the
+JAX package jits them.
 
 Per frame the step performs:
   1. running L1 signal average update (AGC reference for null-dip search)
@@ -93,12 +94,12 @@ class OFDMDemodulator:
     """Holds the mode constants (on `device`) and the frame step.
 
     cuda_graph (see ``utils/graphs.py``): None runs ``frame_step``,
-    ``frame_step_batch`` and ``frame_scan`` as captured CUDA graphs on a
-    CUDA device and eagerly on the CPU, True asks for the capture (raises
-    for a CPU device), False is the eager path. Their results are the same
-    either way, bit for bit, and are the caller's own: a captured call
-    returns copies of the graph's buffers, so a caller may keep a carry or
-    the bits across calls."""
+    ``frame_step_batch``, ``frame_scan``, ``acquire`` and ``l1`` as
+    captured CUDA graphs on a CUDA device and eagerly on the CPU, True asks
+    for the capture (raises for a CPU device), False is the eager path.
+    Their results are the same either way, bit for bit, and are the
+    caller's own: a captured call returns copies of the graph's buffers,
+    so a caller may keep a carry or the bits across calls."""
 
     def __init__(self, transmission_mode: int = 1,
                  config: DemodConfig = DemodConfig(), *,
@@ -133,6 +134,11 @@ class OFDMDemodulator:
                                              cuda_graph=cuda_graph)
         self._scan_program = CapturedProgram(self._frame_scan_impl, dev,
                                              cuda_graph=cuda_graph)
+        # JAX's jitted _acquire and _l1, a graph for each block shape
+        self._acquire_program = CapturedProgram(self._acquire_impl, dev,
+                                                cuda_graph=cuda_graph)
+        self._l1_program = CapturedProgram(sync_ops.l1_average, dev,
+                                           cuda_graph=cuda_graph)
 
     def _as_iq(self, x) -> torch.Tensor:
         return to_device(x, self.device, np.complex64)
@@ -224,15 +230,23 @@ class OFDMDemodulator:
         new_carry = _select(sync_ok, tracked, reset)
         return new_carry, {"bits": bits, "sync_ok": sync_ok, "offset": offset}
 
-    def acquire(self, block, l1_avg):
-        """Null-dip search over a block: (found, end_index)."""
+    def _acquire_impl(self, l1_avg, block):
         cfg = self.cfg
         return sync_ops.find_null_dip(
-            self._as_iq(block), l1_avg, nb_block=cfg.null_search_nb_samples,
+            block, to_device(l1_avg, self.device, np.float32),
+            nb_block=cfg.null_search_nb_samples,
             thresh_start=cfg.thresh_null_start, thresh_end=cfg.thresh_null_end)
 
+    def acquire(self, block, l1_avg):
+        """Null-dip search over a block against the level l1_avg (a number
+        or a tensor): (found, end_index)."""
+        if not torch.is_tensor(l1_avg):
+            l1_avg = np.asarray(l1_avg, np.float32)
+        return self._run(self._acquire_program, l1_avg, block)
+
     def l1(self, block) -> torch.Tensor:
-        return sync_ops.l1_average(self._as_iq(block))
+        """The block's mean L1 level (sync_ops.l1_average)."""
+        return self._run(self._l1_program, block)
 
     def frame_scan(self, nb_frames: int, carry: DemodCarry, buf):
         """Demodulate up to nb_frames consecutive frames without a host
@@ -379,9 +393,7 @@ class StreamingDemodulator:
                     block = d._as_iq(self._buf.view(ptr, ptr + acq_len))
                 if self._l1 == 0.0:
                     self._l1 = float(d.l1(block))
-                found, end_idx = d.acquire(
-                    block, torch.tensor(self._l1, dtype=torch.float32,
-                                        device=dev))
+                found, end_idx = d.acquire(block, self._l1)
                 self._l1 = 0.7 * self._l1 + 0.3 * float(d.l1(block))
                 if bool(found):
                     # rewind past the dip-search granularity so the timing

@@ -10,7 +10,11 @@ orchestrator flips that:
   * MSC: all active subchannels across ALL ensembles group by protection
     shape (dab.msc.group_key) and decode in one launch per shape.
 
-Host byte-level work (FIG parse, superframe/PAD/MOT, database) stays
+Both decodes are programs (captured CUDA graphs on a CUDA device,
+``utils/graphs.py``): the stacked FIC decode one for each number of
+groups, and each protection shape's persistent ``MSCDecodeGroup``, which
+holds its members' deinterleaver histories from round to round. Host
+byte-level work (FIG parse, superframe/PAD/MOT, database) stays
 per-receiver and untouched, so fleet decode is bit-identical to running the
 receivers standalone. This is the dynamic path: channels appear as the FIC
 names them. Once the layout is known, ``FusedFleet`` is the faster static
@@ -25,9 +29,9 @@ import numpy as np
 import torch
 
 from ..params import get_dab_params
-from ..dab.fic import _fic_decode_fn
-from ..dab.msc import (MSCDecodeGroup, dispatch_frame_group,
-                       finalize_frame_group, group_key)
+from ..dab.fic import _fic_decode_fn, fic_program
+from ..dab.msc import (MSCDecodeGroup, finalize_frame_group, group_key,
+                       persistent_group)
 from ..utils.backend import to_device
 from ..utils.profiler import profile_scope
 from .fused_fleet import _Fetch
@@ -43,25 +47,30 @@ class ReceiverFleet:
     behind an event, without blocking, so the decodes of round t are queued
     while the copy of round t - depth lands and its byte layer runs. Side
     effect: FIG ingest, and therefore channel discovery, lags `depth`
-    frames, which only delays a new channel's first decoded frame."""
+    frames, which only delays a new channel's first decoded frame.
+
+    cuda_graph (``utils/graphs.py``) applies to the fleet's decodes and its
+    receivers'."""
 
     def __init__(self, nb_receivers: int, transmission_mode: int = 1,
                  benchmark_all: bool = False, pipeline_depth: int = 0, *,
-                 device):
+                 device, cuda_graph=None):
         self.device = torch.device(device)
+        self.cuda_graph = cuda_graph
         self.dab = get_dab_params(transmission_mode)
         self.receivers: List[DabReceiver] = [
             DabReceiver(transmission_mode, benchmark_all=benchmark_all,
-                        device=self.device)
+                        device=self.device, cuda_graph=cuda_graph)
             for _ in range(nb_receivers)]
-        self.spec, self._fic_decode = _fic_decode_fn()
+        self.spec = _fic_decode_fn()[0]
+        self._fic_decode = fic_program(self.device, cuda_graph)
         self.total_frames = 0
         self.pipeline_depth = pipeline_depth
         self._pending = deque()
         # persistent decode groups with their stacked history on the device,
         # rebuilt only when the channel membership of a protection shape
         # changes
-        self._groups: Dict[tuple, Tuple[MSCDecodeGroup, list]] = {}
+        self._groups: Dict[object, MSCDecodeGroup] = {}
 
     # ---- one round's device half ----
 
@@ -99,6 +108,14 @@ class ReceiverFleet:
                     (ch, all_cifs[i]))
         return jobs
 
+    def _dispatch_msc(self, key, chans):
+        """The persistent group of the (channel, CIFs) pairs of one
+        protection shape, dispatched: its handle."""
+        group = persistent_group(self._groups, key,
+                                 [ch.msc for ch, _ in chans],
+                                 self.cuda_graph)
+        return group.dispatch([c for _, c in chans])
+
     def _dispatch(self, frames):
         fics, all_cifs = self._split_all(frames)
         groups_per_rx = [f.shape[0] for f in fics]
@@ -109,16 +126,8 @@ class ReceiverFleet:
         handles = []
         with profile_scope("fleet/msc_dispatch"):
             for key, chans in self._msc_jobs(frames, all_cifs).items():
-                members = [id(ch) for ch, _ in chans]
-                cached = self._groups.get(key)
-                if cached is None or cached[1] != members:
-                    if cached is not None:
-                        cached[0].sync_back()
-                    cached = (MSCDecodeGroup([ch.msc for ch, _ in chans]),
-                              members)
-                    self._groups[key] = cached
-                h = cached[0].dispatch([c for _, c in chans])
-                handles.append(([ch for ch, _ in chans], h))
+                handles.append(([ch for ch, _ in chans],
+                                self._dispatch_msc(key, chans)))
 
         # every decoded tensor of the round on its way to the host at once
         fetch = self._fetch([fic_bits] + [h[1] for _, h in handles])
@@ -178,9 +187,8 @@ class ReceiverFleet:
                 ofs += f.shape[0]
                 rx.ingest_fibs(fibs)
             with profile_scope("fleet/msc_decode"):
-                for chans in self._msc_jobs(frames, all_cifs).values():
-                    h = dispatch_frame_group(
-                        [ch.msc for ch, _ in chans], [c for _, c in chans])
+                for key, chans in self._msc_jobs(frames, all_cifs).items():
+                    h = self._dispatch_msc(key, chans)
                     for (ch, _), payloads in zip(chans,
                                                  finalize_frame_group(h)):
                         for p in payloads:
@@ -199,7 +207,7 @@ class ReceiverFleet:
         """Finalize every in-flight round (call when the streams end)."""
         while self._pending:
             self._finalize_one()
-        for g, _ in self._groups.values():
+        for g in self._groups.values():
             g.sync_back()
 
     # ---- checkpoint/resume ----

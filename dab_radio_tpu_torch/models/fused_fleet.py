@@ -37,7 +37,9 @@ and the offsets of all its frames (gathered over 'time'), so
 ``drift_correction``, ``last_fib_ok`` and ``materialized_rounds`` read the
 same on every rank of a group, and a serving loop on any rank may move its
 read grid by them. Every rank calls ``process_round`` each round with the
-whole round of all N streams.
+whole round of all N streams. The round is captured there too, its
+collectives inside the graph, when they run over NCCL; over gloo it stays
+eager (``parallel/mesh.py:mesh_cuda_graph``).
 """
 
 from typing import Callable, List, Optional
@@ -109,7 +111,9 @@ class FusedFleet:
                  chainback: str = "sequential",
                  viterbi_branch: str = "matmul", fuse_fic: bool = True,
                  consume_workers: int = 0, mesh=None, cuda_graph=None):
-        from ..parallel.mesh import multichip_receiver_step, receiver_step
+        from ..parallel.mesh import (mesh_cuda_graph,
+                                     multichip_receiver_step, receiver_step,
+                                     track_collectives)
         self.nb_streams = nb_streams
         self.mesh = mesh
         self.device = torch.device(device)
@@ -145,10 +149,6 @@ class FusedFleet:
                     block_tracking=block_tracking, viterbi=viterbi,
                     chainback=chainback, viterbi_branch=viterbi_branch,
                     fuse_fic=fuse_fic, cuda_graph=False)
-        if mesh is not None and cuda_graph:
-            raise NotImplementedError(
-                "a fleet on a mesh runs its round eagerly: capturing the "
-                "round's collectives is not done yet")
         if mesh is None:
             self.frames_per_round = frames_per_step
             self.step, state = receiver_step(
@@ -169,9 +169,9 @@ class FusedFleet:
         # self.step is the plain round; the program runs it with the bit
         # packing and holds its state (carry, history)
         self._init_state = state[:2]
-        self.program = CapturedProgram(
+        self.program = track_collectives(CapturedProgram(
             self._round, self.device, state=self._init_state,
-            cuda_graph=False if mesh is not None else cuda_graph)
+            cuda_graph=mesh_cuda_graph(mesh, cuda_graph)), mesh)
         # the global stream rows this fleet serves: all of them, or on a
         # mesh those of this rank's ens coordinate
         self.rows = (0, nb_streams) if mesh is None else self.step.rows

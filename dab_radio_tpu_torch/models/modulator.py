@@ -3,9 +3,10 @@
 QPSK-map logical bits, frequency-interleave onto physical carriers,
 accumulate the differential phase across symbols (``torch.cumprod`` over
 the symbol axis, where the JAX package uses an associative scan), batched
-IFFT, cyclic prefix by concatenation. ``modulate_reference_bytes`` gives
-the reference transmitter's byte contract (bytes straight onto physical
-carriers) for the simulate_transmitter app.
+IFFT, cyclic prefix by concatenation: one program (a captured CUDA graph on
+a CUDA device) a call. ``modulate_reference_bytes`` gives the reference
+transmitter's byte contract (bytes straight onto physical carriers) for the
+simulate_transmitter app.
 
 Bit convention: input bits are in the demodulator output order: for data
 symbol s, bits[s, i] is b0 and bits[s, i + ncarriers] is b1 of logical
@@ -17,10 +18,19 @@ import torch
 
 from ..params import get_ofdm_params, get_prs_reference
 from ..params.mapper import get_carrier_mapper, get_carrier_to_fft_bin
+from ..utils.graphs import CapturedProgram
 
 
 class OFDMModulator:
-    def __init__(self, transmission_mode: int, device: torch.device):
+    """The modulator on `device`. cuda_graph (``utils/graphs.py``): None
+    runs ``modulate_frame`` and ``modulate_reference_bytes`` as captured
+    CUDA graphs on a CUDA device, one for each input shape (the JAX
+    package jits its frame modulation), and eagerly on the CPU; True asks
+    for the capture, False is the eager path. The results are the same
+    either way and are the caller's own."""
+
+    def __init__(self, transmission_mode: int, device: torch.device,
+                 cuda_graph=None):
         self.params = p = get_ofdm_params(transmission_mode)
         self.device = dev = torch.device(device)
         prs_fft = get_prs_reference(transmission_mode, p.nb_fft)
@@ -40,14 +50,29 @@ class OFDMModulator:
         self._phase_map = torch.as_tensor(np.array(
             [-amp - 1j * amp, amp - 1j * amp, amp + 1j * amp,
              -amp + 1j * amp], np.complex64), device=dev)
+        self._shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=dev)
+        self._bits_program = CapturedProgram(self._modulate_bits, dev,
+                                             cuda_graph=cuda_graph)
+        self._bytes_program = CapturedProgram(self._modulate_bytes, dev,
+                                              cuda_graph=cuda_graph)
+
+    def _call(self, program: CapturedProgram, x) -> torch.Tensor:
+        """program(x): a captured program takes numpy as it is (it stages
+        it) and its output is copied out of the graph's buffer; an eager
+        one takes x as a tensor on the device."""
+        if program.captured:
+            return program(x if torch.is_tensor(x) else np.asarray(x)).clone()
+        return program(torch.as_tensor(x, device=self.device))
 
     def modulate_frame(self, bits) -> torch.Tensor:
         """bits: (..., S-1, 2*ncarriers) or (..., (S-1)*2*ncarriers) 0/1.
         Returns (..., nb_frame_samples) complex64: NULL + PRS + data symbols."""
+        return self._call(self._bits_program, bits)
+
+    def _modulate_bits(self, bits: torch.Tensor) -> torch.Tensor:
         p = self.params
         ncarr = p.nb_data_carriers
         s_data = p.nb_data_symbols
-        bits = torch.as_tensor(bits, device=self.device)
         if bits.shape[-1] == s_data * 2 * ncarr:
             bits = bits.reshape(*bits.shape[:-1], s_data, 2 * ncarr)
         assert tuple(bits.shape[-2:]) == (s_data, 2 * ncarr), bits.shape
@@ -61,9 +86,13 @@ class OFDMModulator:
 
         # differential accumulation: sym_k = PRS * prod_{m<=k} q_m
         prs = self.prs_slots.expand(*q_slots.shape[:-2], 1, ncarr)
-        spec_slots = torch.cumprod(torch.cat([prs, q_slots], dim=-2), dim=-2)
+        return self._frame(torch.cumprod(torch.cat([prs, q_slots], dim=-2),
+                                         dim=-2))
 
-        # scatter slots into FFT bins
+    def _frame(self, spec_slots: torch.Tensor) -> torch.Tensor:
+        """(..., S, ncarr) carrier slots -> (..., nb_frame_samples): the
+        slots into their FFT bins, IFFT, cyclic prefix, NULL in front."""
+        p = self.params
         spec = torch.zeros((*spec_slots.shape[:-1], p.nb_fft),
                            dtype=torch.complex64, device=self.device)
         spec[..., self.carrier_bins] = spec_slots
@@ -88,23 +117,14 @@ class OFDMModulator:
         differential phase and the IFFT run on the modulator's device;
         returns one frame of IQ as numpy complex64."""
         p = self.params
-        nbytes_sym = p.nb_data_carriers * 2 // 8
-        data = torch.as_tensor(
-            np.asarray(data, dtype=np.uint8).reshape(p.nb_data_symbols,
-                                                     nbytes_sym),
-            device=self.device)
-        shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=self.device)
-        pairs = ((data[..., None] >> shifts) & 0b11).reshape(
-            p.nb_data_symbols, -1).to(torch.int64)
+        data = np.asarray(data, dtype=np.uint8).reshape(
+            p.nb_data_symbols, p.nb_data_carriers * 2 // 8)
+        return self._call(self._bytes_program, data).cpu().numpy()
+
+    def _modulate_bytes(self, data: torch.Tensor) -> torch.Tensor:
+        pairs = ((data[..., None] >> self._shifts) & 0b11).reshape(
+            data.shape[0], -1).to(torch.int64)
         q = self._phase_map[pairs]                            # (S-1, ncarr)
         # slots ordered negative-then-positive == carrier_bins layout
-        spec_slots = torch.cumprod(torch.cat([self.prs_slots[None], q]),
-                                   dim=0)
-        spec = torch.zeros((p.nb_frame_symbols, p.nb_fft),
-                           dtype=torch.complex64, device=self.device)
-        spec[:, self.carrier_bins] = spec_slots
-        td = torch.fft.ifft(spec) * p.nb_fft
-        sym = torch.cat([td[:, -p.nb_cyclic_prefix:], td], dim=-1)
-        out = torch.cat([torch.zeros(p.nb_null_period, dtype=torch.complex64,
-                                     device=self.device), sym.reshape(-1)])
-        return out.cpu().numpy()
+        return self._frame(torch.cumprod(torch.cat([self.prs_slots[None], q]),
+                                         dim=0))

@@ -4,7 +4,10 @@
 Many independent 2.048 MSPS IQ streams demodulated at once on one device.
 Each stream keeps its own host read pointer and sync state, but every
 tracking round batches all locked streams' windows into ONE batched frame
-step (or K-frame scan) on the device. Streams acquire independently
+step (or K-frame scan) on the device, with the u8 dequantise before it and
+the merge of the carry under the ready mask after it: one program (a
+captured CUDA graph on a CUDA device, ``utils/graphs.py``) that holds the
+carry, as the JAX class jits ``_masked``. Streams acquire independently
 (acquisition is rare); tracking dominates and is fully batched. A stream
 that loses lock falls back to acquisition without stalling the batch.
 """
@@ -17,6 +20,7 @@ import torch
 from .demodulator import OFDMDemodulator, DemodCarry, _select
 from ..parallel.mesh import _u8_to_complex, shard_demod_batch
 from ..utils.backend import to_device
+from ..utils.graphs import CapturedProgram
 
 
 class MultiStreamDemodulator:
@@ -44,11 +48,17 @@ class MultiStreamDemodulator:
     returns their frames under their global stream numbers. Every stream's
     demodulation is its own, so no collective runs; feed the frames to a
     ReceiverFleet of hi - lo receivers on the same rank. A mesh whose 'time'
-    or 'sub' axis is above 1 is refused."""
+    or 'sub' axis is above 1 is refused.
+
+    cuda_graph (``utils/graphs.py``): None runs the round as a captured
+    CUDA graph on a CUDA device (on a mesh too: no collective runs) and
+    eagerly on the CPU, True asks for the capture, False is the eager
+    path. Frames handed out are the caller's own either way."""
 
     def __init__(self, demod: OFDMDemodulator, nb_streams: int,
                  frames_per_step: int = 1, ingest: str = "c64",
-                 fetch_bits: bool = True, *, device, mesh=None):
+                 fetch_bits: bool = True, *, device, mesh=None,
+                 cuda_graph=None):
         if ingest not in ("c64", "u8"):
             raise ValueError(f"ingest must be 'c64' or 'u8', got {ingest!r}")
         self.device = torch.device(device)
@@ -58,7 +68,7 @@ class MultiStreamDemodulator:
         self.fetch_bits = fetch_bits
         self.demod = demod
         self.nb_streams = nb_streams
-        self._frame_step, self.rows = demod.frame_step_batch, (0, nb_streams)
+        self.rows = (0, nb_streams)
         if mesh is not None:
             for axis in ("time", "sub"):
                 if mesh.shape[axis] > 1:
@@ -66,8 +76,7 @@ class MultiStreamDemodulator:
                         "MultiStreamDemodulator splits only the batch's rows: "
                         f"the mesh's {axis!r} axis has {mesh.shape[axis]} "
                         "ranks, it must have 1")
-            self._frame_step, self.rows = shard_demod_batch(demod, mesh,
-                                                            nb_streams)
+            _, self.rows = shard_demod_batch(demod, mesh, nb_streams)
         self.B = self.rows[1] - self.rows[0]        # the streams held here
         self.ingest = ingest
         empty = (np.zeros(0, np.complex64) if ingest == "c64"
@@ -75,7 +84,11 @@ class MultiStreamDemodulator:
         self.bufs: List[np.ndarray] = [empty.copy() for _ in range(self.B)]
         self.tracking = np.zeros(self.B, dtype=bool)
         self.l1 = np.zeros(self.B, dtype=np.float32)
-        self.carry = DemodCarry.init((self.B,), device=self.device)
+        # the round, its carry held by the program
+        self.program = CapturedProgram(
+            self._masked, self.device,
+            state=DemodCarry.init((self.B,), device=self.device),
+            cuda_graph=cuda_graph)
         self.frames_emitted = 0
         # K-frame rounds: B streams x K tracking steps per host read
         self.frames_per_step = max(1, frames_per_step)
@@ -101,23 +114,34 @@ class MultiStreamDemodulator:
         self.l1 = np.array(state["l1"][rows], dtype=np.float32)
         self.frames_emitted = int(state["frames_emitted"])
 
-    # ---- the batched device rounds: demod and ready-mask carry merge ----
+    @property
+    def carry(self) -> DemodCarry:
+        """A copy of the batch's carry (fields (B,)), on the device."""
+        return self.program.read_state()
 
-    def _to_iq(self, raw: np.ndarray) -> torch.Tensor:
-        """(B, n) host block -> (B, samples) complex64 on the device."""
-        if self.ingest == "u8":
-            return _u8_to_complex(to_device(raw, self.device))
-        return to_device(raw, self.device, np.complex64)
+    @carry.setter
+    def carry(self, carry: DemodCarry):
+        self.program.load_state(carry)
 
-    def _masked_step(self, carry, wins, mask):
-        new_c, out = self._frame_step(carry, wins)
-        return _select(mask, new_c, carry), out
+    # ---- the batched device round: demod and ready-mask carry merge ----
 
-    def _masked_scan(self, carry, bufs, mask):
-        new_c, consumed, outs = self.demod.frame_scan(
-            self.frames_per_step, carry, bufs)
-        return (_select(mask, new_c, carry), consumed,
-                outs["valid"] & mask[:, None], outs["bits"])
+    def _masked(self, carry, raw, mask, nb_frames: int):
+        """The program's function: the (B, n) block of raw samples (u8
+        bytes or complex64) dequantised, one frame step (nb_frames 1) or
+        scan of every row, and the carry of the rows that mask leaves out
+        kept as it was -> (carry, (consumed, valid (B, K), bits (B, K,
+        nb_bits))) for a scan, (carry, {bits, sync_ok, offset}) for a
+        step."""
+        raw = to_device(raw, self.device)
+        iq = _u8_to_complex(raw) if self.ingest == "u8" else raw
+        mask = to_device(mask, self.device)
+        if nb_frames == 1:
+            new_c, out = self.demod._frame_step_impl(carry, iq)
+            return _select(mask, new_c, carry), out
+        new_c, consumed, outs = self.demod._frame_scan_impl(nb_frames, carry,
+                                                            iq)
+        return _select(mask, new_c, carry), (
+            consumed, outs["valid"] & mask[:, None], outs["bits"])
 
     # ---- ingest-format helpers (sample units; u8 stores 2 bytes/sample) --
 
@@ -162,9 +186,7 @@ class MultiStreamDemodulator:
             block = d._as_iq(self._slice_c64(i, d.window_len))
             if self.l1[i] == 0.0:
                 self.l1[i] = float(d.l1(block))
-            found, end_idx = d.acquire(
-                block, torch.tensor(self.l1[i], dtype=torch.float32,
-                                    device=self.device))
+            found, end_idx = d.acquire(block, self.l1[i])
             self.l1[i] = 0.7 * self.l1[i] + 0.3 * float(d.l1(block))
             if bool(found):
                 rewind = 2 * d.cfg.null_search_nb_samples
@@ -188,7 +210,8 @@ class MultiStreamDemodulator:
 
     def _ready_block(self, nb_samples: int):
         """The streams that track and hold nb_samples, their samples as one
-        (B, n) host block (idle rows: mid-scale bytes / zeros) and the mask."""
+        (B, n) host block (idle rows: mid-scale bytes / zeros) and the
+        mask, both numpy."""
         ready = [i for i in range(self.B)
                  if self.tracking[i] and self._n_samples(i) >= nb_samples]
         if not ready:
@@ -201,7 +224,15 @@ class MultiStreamDemodulator:
             block[i] = self._slice_raw(i, nb_samples)
         mask = np.zeros(self.B, dtype=bool)
         mask[ready] = True
-        return ready, self._to_iq(block), to_device(mask, self.device)
+        return ready, block, mask
+
+    def _bits(self, bits: torch.Tensor):
+        """The round's bits as handed out: on the host, or (fetch_bits off)
+        on the device, copied out of a captured program's buffers so that
+        they outlive its next call."""
+        if self.fetch_bits:
+            return bits.cpu().numpy()
+        return bits.clone() if self.program.captured else bits
 
     def step(self):
         """One round: acquire unlocked streams, batch-demod locked ones.
@@ -218,15 +249,14 @@ class MultiStreamDemodulator:
         K = self.frames_per_step
         if K > 1:
             scan_len = K * d.frame_advance + d.window_len
-            ready, dev_in, mask = self._ready_block(scan_len)
+            ready, block, mask = self._ready_block(scan_len)
             if not ready:
                 return []
-            self.carry, consumed, valid, bits = self._masked_scan(
-                self.carry, dev_in, mask)
+            consumed, valid, bits = self.program(block, mask, K)
             # one fetch of the round's control outputs; the frame bits stay
             # on the device when fetch_bits is off
             consumed, valid = consumed.cpu().numpy(), valid.cpu().numpy()
-            bits_h = bits.cpu().numpy() if self.fetch_bits else bits
+            bits_h = self._bits(bits)
             results = []
             for k in range(K):
                 for i in ready:
@@ -243,13 +273,13 @@ class MultiStreamDemodulator:
 
         # ready streams contribute real windows; the others get idle rows,
         # and their carry is restored afterwards
-        ready, wins, mask = self._ready_block(d.window_len)
+        ready, block, mask = self._ready_block(d.window_len)
         if not ready:
             return []
-        self.carry, out = self._masked_step(self.carry, wins, mask)
+        out = self.program(block, mask, 1)
         sync_ok = out["sync_ok"].cpu().numpy()
         offsets = out["offset"].cpu().numpy()
-        bits = out["bits"].cpu().numpy() if self.fetch_bits else out["bits"]
+        bits = self._bits(out["bits"])
         results = []
         for i in ready:
             if sync_ok[i]:

@@ -3,10 +3,12 @@
 Per OFDM frame: split FIC/MSC soft bits, decode the FIC into the ensemble
 database, and when subchannel + component entries complete, instantiate
 channel decoders (DAB+ stream audio / DAB stream audio / packet data). The
-Viterbi decodes run on the receiver's device, same-protection subchannels
-batched into one decode; the byte-level protocol layers are the JAX
-package's numpy modules and run on the host; observers are plain callback
-lists.
+Viterbi decodes run on the receiver's device as programs (captured CUDA
+graphs on a CUDA device, ``utils/graphs.py``): the FIC decode, and one
+persistent decode group for each protection shape that two or more
+subchannels share, which holds their deinterleaver histories from frame to
+frame; the byte-level protocol layers are the JAX package's numpy modules
+and run on the host; observers are plain callback lists.
 """
 
 from dataclasses import dataclass, field
@@ -23,7 +25,8 @@ from ..dab.database import (
 )
 from ..dab.aac import SuperframeProcessor
 from ..dab.fic import FICDecoder
-from ..dab.msc import MSCDecoder, decode_frame_group, group_key
+from ..dab.msc import (MSCDecoder, finalize_frame_group, group_key,
+                       persistent_group, release_groups)
 from ..utils.profiler import profile_scope
 from .controls import AudioControls
 
@@ -72,11 +75,12 @@ class DabPlusChannel(ChannelCheckpointMixin):
 
     kind = "dab+"
 
-    def __init__(self, cfg: SubchannelConfig, device: torch.device):
+    def __init__(self, cfg: SubchannelConfig, device: torch.device,
+                 cuda_graph=None):
         from ..dab.aac_data import AACDataDecoder
         from ..dab.slideshow import SlideshowManager
         self.cfg = cfg
-        self.msc = MSCDecoder(cfg, device)
+        self.msc = MSCDecoder(cfg, device, cuda_graph)
         self.superframe = SuperframeProcessor()
         self.events = ChannelEvents()
         self.header = None
@@ -165,11 +169,12 @@ class DabChannel(ChannelCheckpointMixin):
 
     kind = "dab"
 
-    def __init__(self, cfg: SubchannelConfig, device: torch.device):
+    def __init__(self, cfg: SubchannelConfig, device: torch.device,
+                 cuda_graph=None):
         from ..dab.mp2 import MP2PadExtractor
         from ..dab.slideshow import SlideshowManager
         self.cfg = cfg
-        self.msc = MSCDecoder(cfg, device)
+        self.msc = MSCDecoder(cfg, device, cuda_graph)
         self.events = ChannelEvents()
         self.pad_extractor = MP2PadExtractor()
         self.slideshows = SlideshowManager()
@@ -230,10 +235,10 @@ class DataPacketChannel(ChannelCheckpointMixin):
     kind = "packet"
 
     def __init__(self, cfg: SubchannelConfig, packet_address: int,
-                 fec_scheme: int, device: torch.device):
+                 fec_scheme: int, device: torch.device, cuda_graph=None):
         from ..dab.packets import PacketProcessor
         self.cfg = cfg
-        self.msc = MSCDecoder(cfg, device)
+        self.msc = MSCDecoder(cfg, device, cuda_graph)
         self.events = ChannelEvents()
         self.processor = PacketProcessor(packet_address,
                                          use_fec=(fec_scheme == 1))
@@ -256,13 +261,16 @@ class DataPacketChannel(ChannelCheckpointMixin):
 
 
 class DabReceiver:
-    """Frame soft bits in -> ensemble database + per-subchannel channels."""
+    """Frame soft bits in -> ensemble database + per-subchannel channels.
+    cuda_graph (``utils/graphs.py``) applies to its FIC decoder, its
+    channels' decoders and its decode groups."""
 
     def __init__(self, transmission_mode: int = 1, benchmark_all: bool = False,
-                 *, device: torch.device):
+                 *, device: torch.device, cuda_graph=None):
         self.device = torch.device(device)
+        self.cuda_graph = cuda_graph
         self.dab = get_dab_params(transmission_mode)
-        self.fic = FICDecoder(transmission_mode, self.device)
+        self.fic = FICDecoder(transmission_mode, self.device, cuda_graph)
         # C++ parser when native/libdabfig.so is available (differential-
         # fuzzed equal to dab.fig.FIGParser); falls back to Python
         self.parser = NativeFIGParser()
@@ -275,6 +283,9 @@ class DabReceiver:
         self.total_frames = 0
         self._fib_memo: Dict[bytes, bool] = {}  # see ingest_fibs
         self._fib_memo_clock = -1               # db_mutation_clock at build
+        # group_key -> the persistent MSCDecodeGroup of the channels of
+        # that protection shape, when there are two or more
+        self._groups: Dict[object, object] = {}
 
     @property
     def db(self):
@@ -283,19 +294,25 @@ class DabReceiver:
     # ---- checkpoint/resume: the pickle holds numpy, never device tensors ----
 
     def __getstate__(self):
+        # the channels' decoders pickle their current histories (a group's
+        # rows included); the groups and their graphs stay behind
         d = dict(self.__dict__)
         d["on_audio_channel"] = []
         d["on_data_channel"] = []
         d["device"] = str(self.device)
+        d["_groups"] = {}
         return d
 
     def __setstate__(self, d):
         self.__dict__.update(d)
         self.device = torch.device(d["device"])
+        self.__dict__.setdefault("cuda_graph", None)
+        self.__dict__.setdefault("_groups", {})
 
     def to(self, device) -> "DabReceiver":
         """Move the receiver, its FIC decoder and every channel's
         deinterleaver history to `device`."""
+        release_groups(self._groups)
         self.device = torch.device(device)
         self.fic.to(self.device)
         for ch in self.channels.values():
@@ -380,15 +397,20 @@ class DabReceiver:
             fibs, _ = self.fic.decode_fic(fic)
         self.ingest_fibs(fibs)
         with profile_scope("radio/msc_channels"):
-            # group same-protection subchannels into one batched decode
+            # group same-protection subchannels into one batched decode, by
+            # a group kept from frame to frame while its members stay
             groups: Dict[object, list] = {}
             for ch in list(self.channels.values()):
                 groups.setdefault(group_key(ch.msc.cfg), []).append(ch)
-            for chans in groups.values():
+            for key, chans in groups.items():
                 if len(chans) == 1:
                     chans[0].process_frame_cifs(cifs)
                     continue
-                results = decode_frame_group([c.msc for c in chans], cifs)
+                group = persistent_group(self._groups, key,
+                                         [c.msc for c in chans],
+                                         self.cuda_graph)
+                results = finalize_frame_group(
+                    group.dispatch([cifs] * len(chans)))
                 for ch, payloads in zip(chans, results):
                     for p in payloads:
                         if p is not None:
@@ -417,14 +439,15 @@ class DabReceiver:
             ch = None
             if (comp.transport_mode == STREAM_AUDIO
                     and comp.audio_service_type == AUDIO_DAB_PLUS):
-                ch = DabPlusChannel(cfg, self.device)
+                ch = DabPlusChannel(cfg, self.device, self.cuda_graph)
             elif (comp.transport_mode == STREAM_AUDIO
                     and comp.audio_service_type == AUDIO_DAB):
-                ch = DabChannel(cfg, self.device)
+                ch = DabChannel(cfg, self.device, self.cuda_graph)
             elif (comp.transport_mode == PACKET_DATA
                     and sub.fec_scheme is not None):
                 ch = DataPacketChannel(cfg, comp.packet_address or 0,
-                                       sub.fec_scheme, self.device)
+                                       sub.fec_scheme, self.device,
+                                       self.cuda_graph)
             if ch is None:
                 continue
             self.channels[sub_id] = ch

@@ -22,7 +22,8 @@ from datetime import timedelta
 import torch
 import torch.distributed as dist
 
-from .mesh import ReceiverMesh, make_receiver_mesh
+from .mesh import (ReceiverMesh, make_receiver_mesh,
+                   release_collective_programs)
 from ..utils.backend import to_device
 
 _initialized = False
@@ -98,9 +99,13 @@ def initialize(init_method: str = None, world_size: int = None,
 
 
 def shutdown():
-    """Take the process group down, if this module brought it up."""
+    """Take the process group down, if this module brought it up, after
+    freeing the graphs of the captured programs that hold its collectives
+    (NCCL waits for ever to take down a communicator that a live graph
+    uses)."""
     global _initialized
     if _initialized and dist.is_initialized():
+        release_collective_programs()
         dist.destroy_process_group()
     _initialized = False
 

@@ -20,6 +20,9 @@ round and asserts that the FIBs that pass the CRC and the MSC payloads
 after the 16-CIF deinterleaver fill equal those of the port's FICDecoder
 and MSCDecoder fed the transmitted frames; it prints one line
 ``dryrun: {json}`` with each rank's K1 launches, step time and collectives.
+Over NCCL on CUDA the step is captured with its collectives
+(``mesh_cuda_graph``), and each rank replays it once from the same state:
+``replay_equal`` says whether the replay gave the first call's outputs.
 A failed check raises, so the rank exits non-zero. ``Ranks`` and
 ``launch`` start ranks as processes and stop all of them when one fails or
 time runs out.
@@ -144,7 +147,8 @@ def dryrun_multichip(mesh, device, frames: int = 20):
         start_ev, end_ev = (torch.cuda.Event(enable_timing=True)
                             for _ in range(2))
         start_ev.record()
-    carry, hist, out = step(carry, hist, local)
+    state = (carry, hist)
+    carry, hist, out = step(*state, local)
     if device.type == "cuda":
         end_ev.record()
     sync()
@@ -154,9 +158,20 @@ def dryrun_multichip(mesh, device, frames: int = 20):
                           if device.type == "cuda" else None),
               "launches": dict(K.LAUNCHES),
               "collectives": dict(COLLECTIVES),
+              "captured": bool(getattr(step, "captured", False)),
+              "replay_equal": None,
               "loaded_jax": sorted(m for m in sys.modules
                                    if m.split(".")[0] in ("jax",
                                                           "dab_radio_tpu"))}
+    if report["captured"]:
+        # the step captured with its collectives (NCCL): a replay from the
+        # same state gives the first call's outputs again
+        first = [x.clone() for x in (*carry, hist, *out.values())
+                 if x is not None]
+        carry, hist, out = step(*state, local)
+        again = [x for x in (*carry, hist, *out.values()) if x is not None]
+        report["replay_equal"] = all(torch.equal(a, b)
+                                     for a, b in zip(first, again))
     got = gather_round(mesh, carry, hist, out)
     reports = _gather_objects(mesh, report, 0)
     if got is None:

@@ -27,10 +27,15 @@ cards and gloo on the CPU (or between ranks that share one card):
   'sub'  - subchannels: each rank decodes its S / n_sub of them.
 
 Both run one body: ``receiver_step`` is ``multichip_receiver_step``
-without a mesh, and the mesh adds the collectives around the round.
+without a mesh, and the mesh adds the collectives around the round. On a
+CUDA device the round, the time-sharded demod and the cold start run as
+captured CUDA graphs (``utils/graphs.py``), the collectives inside them,
+when the mesh's collectives run over NCCL (or there are none); over gloo
+they stay eager, since gloo moves a CUDA tensor through host memory.
 """
 
 import time
+import weakref
 from contextlib import contextmanager
 
 import numpy as np
@@ -38,7 +43,9 @@ import torch
 import torch.distributed as dist
 
 from ..models.demodulator import OFDMDemodulator, DemodCarry, _select
+from ..ops import sync as sync_ops
 from ..utils.backend import to_device
+from ..utils import graphs
 from ..utils.graphs import CapturedProgram, use_graph
 
 STOP_AFTER = (None, "ingest", "demod", "subs", "deint", "depunct", "acs")
@@ -138,8 +145,11 @@ def make_receiver_mesh(n: int = None, axis_sizes=None) -> ReceiverMesh:
 
 # calls, wall seconds (on the host) and host copies of the collectives of
 # this process; gloo moves CPU tensors only, so a CUDA tensor goes through
-# host memory, one copy each way
+# host memory, one copy each way. A replay of a captured step adds the
+# calls its capture recorded; the seconds count eager calls only (a replay
+# runs no Python), and a captured step has no host copy (NCCL only)
 COLLECTIVES = {"calls": 0, "seconds": 0.0, "host_copies": 0}
+graphs.register_counter(COLLECTIVES, ("calls",))
 
 
 def reset_collectives():
@@ -154,6 +164,50 @@ def _counted():
     finally:
         COLLECTIVES["calls"] += 1
         COLLECTIVES["seconds"] += time.perf_counter() - t0
+
+
+def mesh_cuda_graph(mesh, cuda_graph):
+    """cuda_graph (``utils/graphs.py``) as a step on `mesh` may take it: a
+    mesh whose collectives run over gloo stays eager (its CUDA tensors go
+    through host memory, ``_to_wire``, which a graph cannot hold), and
+    True raises ValueError there; NCCL's collectives are captured with the
+    step, and a mesh without a process group has none."""
+    if mesh is None or mesh.groups is None:
+        return cuda_graph
+    backend = dist.get_backend(mesh.group("time"))
+    if backend == "gloo":
+        if cuda_graph:
+            raise ValueError(
+                "cuda_graph=True on a mesh over gloo: gloo moves a CUDA "
+                "tensor through host memory, which a CUDA graph cannot hold; "
+                "capture needs NCCL")
+        return False
+    return cuda_graph
+
+
+# the captured programs whose graphs hold collectives of a process group.
+# NCCL does not take a communicator down while a graph that uses it lives
+# (destroy_process_group waits for ever), so distributed.shutdown() frees
+# their graphs first (release_collective_programs)
+_COLLECTIVE_PROGRAMS = weakref.WeakSet()
+
+
+def track_collectives(program, mesh):
+    """Note `program` (made for `mesh`) if it is captured with the mesh's
+    collectives inside; returns it."""
+    if getattr(program, "captured", False) and mesh is not None \
+            and mesh.groups is not None:
+        _COLLECTIVE_PROGRAMS.add(program)
+    return program
+
+
+def release_collective_programs():
+    """Free the graphs of every captured program that holds collectives;
+    each captures again at its next call."""
+    for program in list(_COLLECTIVE_PROGRAMS):
+        if program.device.type == "cuda":
+            torch.cuda.synchronize(program.device)
+        program.release()
 
 
 def _to_wire(x: torch.Tensor, group) -> torch.Tensor:
@@ -224,7 +278,8 @@ def _halo_from_right(mesh: ReceiverMesh, head: torch.Tensor,
 
 
 def make_timesharded_demod(demod: OFDMDemodulator, frames_per_shard: int,
-                           block_tracking: bool = False, *, mesh=None):
+                           block_tracking: bool = False, *, mesh=None,
+                           cuda_graph=None):
     """Streaming demod of ``frames_per_shard`` frames a call for B streams.
 
     Input iq: (B, T) complex64 with T = frames_per_shard * frame_samples,
@@ -251,7 +306,14 @@ def make_timesharded_demod(demod: OFDMDemodulator, frames_per_shard: int,
     state at the block's start, and advances the carry once, from the last
     frame's estimates: B * F windows a call instead of B, for a tracking
     loop F times slower, which is fine in locked steady state. The
-    sequential scan is the exact default."""
+    sequential scan is the exact default.
+
+    cuda_graph: None returns on a CUDA device fn as a
+    ``utils.graphs.CapturedProgram`` (a graph for each shape, a tail of
+    None its own; outputs valid until its next call), the halo's send/recv
+    inside it when the mesh runs over NCCL; over gloo, and on the CPU, the
+    plain function (``mesh_cuda_graph``). True asks for the capture, False
+    returns the plain function."""
     fs = demod.params.nb_frame_samples
     win = demod.window_len
     halo = win - fs
@@ -286,8 +348,18 @@ def make_timesharded_demod(demod: OFDMDemodulator, frames_per_shard: int,
         carry = DemodCarry(*[x[:, None] for x in c])
         return carry, bits[:, None], offs[:, None].to(torch.int32)
 
-    run.halo = halo
-    return run
+    return _program_of(run, demod.device, mesh, cuda_graph, halo=halo)
+
+
+def _program_of(fn, device, mesh, cuda_graph, **meta):
+    """fn, or fn as a captured program when cuda_graph and the mesh allow
+    it on `device` (``mesh_cuda_graph``), with the attributes `meta`."""
+    if use_graph(mesh_cuda_graph(mesh, cuda_graph), device):
+        fn = track_collectives(CapturedProgram(fn, device, cuda_graph=True),
+                               mesh)
+    for k, v in meta.items():
+        setattr(fn, k, v)
+    return fn
 
 
 def shard_demod_batch(demod: OFDMDemodulator, mesh: ReceiverMesh,
@@ -400,8 +472,9 @@ def multichip_receiver_step(mesh, transmission_mode: int = 2,
     prefixes included. A captured fn copies its arguments into static
     buffers (a numpy round through pinned memory) and returns static
     buffers, valid until its next call; its outputs are bit-identical to
-    the plain function's. With a mesh the round stays eager: True raises
-    NotImplementedError.
+    the plain function's. With a mesh the round is captured with its
+    collectives when they run over NCCL; over gloo it stays eager, and
+    True raises ValueError (``mesh_cuda_graph``).
 
     With a ReceiverMesh it is this rank's part of the round over the
     ('ens', 'time', 'sub') mesh: the same body on `device`, with
@@ -466,12 +539,8 @@ def multichip_receiver_step(mesh, transmission_mode: int = 2,
     if stop_after not in STOP_AFTER:
         raise ValueError(f"stop_after must be one of {STOP_AFTER}, "
                          f"got {stop_after!r}")
-    if mesh is not None and cuda_graph:
-        raise NotImplementedError(
-            "the mesh step runs eagerly: capturing its collectives (NCCL "
-            "inside a CUDA graph) is not done yet")
+    graph = mesh_cuda_graph(mesh, cuda_graph)
     device = torch.device(device)
-    captured = mesh is None and use_graph(cuda_graph, device)
     demod = OFDMDemodulator(transmission_mode, device=device)
     dab = get_dab_params(transmission_mode)
     sizes = mesh.shape if mesh is not None else dict.fromkeys(AXES, 1)
@@ -482,7 +551,7 @@ def multichip_receiver_step(mesh, transmission_mode: int = 2,
     C = F * dab.nb_cifs                              # CIFs a round
     demod_fn = make_timesharded_demod(demod, frames_per_shard,
                                       block_tracking=block_tracking,
-                                      mesh=mesh)
+                                      mesh=mesh, cuda_graph=False)
 
     fic_spec = vit.ViterbiSpec.from_schedule(fic_puncture_schedule())
     if subchannel_cfgs is None:
@@ -688,16 +757,15 @@ def multichip_receiver_step(mesh, transmission_mode: int = 2,
                                  device=device))
     deint_hist = torch.zeros((B, S, DEPTH, nb_sub_bits), dtype=torch.int8,
                              device=device)
-    fn = CapturedProgram(step, device, cuda_graph=True) if captured else step
-    fn.subchannel_cfgs = grid if per_stream else cfgs   # consumer metadata
-    fn.per_stream = per_stream
-    fn.msc_nb_data_bits = nb_data_list   # payload bits per (stream,) sub
-    # pass the next block's first `tail_samples` samples as `tail`, so that
-    # the last frame's timing margin reads real data
-    fn.tail_samples = demod_fn.halo
-    fn.stop_after = stop_after
-    # the global stream rows and subchannels this rank decodes
-    fn.rows, fn.subs = row_range, sub_range
+    # metadata for the consumers: the subchannels and their payload bits per
+    # (stream,) sub; `tail_samples`, the next block's first samples to pass
+    # as `tail` so that the last frame's timing margin reads real data; the
+    # global stream rows and subchannels this rank decodes
+    fn = _program_of(step, device, mesh, graph,
+                     subchannel_cfgs=grid if per_stream else cfgs,
+                     per_stream=per_stream, msc_nb_data_bits=nb_data_list,
+                     tail_samples=demod_fn.halo, stop_after=stop_after,
+                     rows=row_range, subs=sub_range)
     return fn, (carry, deint_hist, iq)
 
 
@@ -757,7 +825,8 @@ def gather_round(mesh: ReceiverMesh, carry, deint_hist, outputs,
 
 def make_coldstart_timesharded_demod(demod: OFDMDemodulator,
                                      mesh: ReceiverMesh,
-                                     frames_per_shard: int):
+                                     frames_per_shard: int, *,
+                                     cuda_graph=None):
     """Sequence-parallel demod that ACQUIRES from a cold carry.
 
     Input iq: this rank's (B, frames_per_shard * frame_samples) complex64
@@ -771,7 +840,9 @@ def make_coldstart_timesharded_demod(demod: OFDMDemodulator,
     whole stream block). Returns fn(iq, tail=None) -> (carry (B, 1),
     bits (B, 1, frames_per_shard, nb_frame_bits), valid (B, 1,
     frames_per_shard)); valid is False for frames before the detection,
-    after a desync and on blocks with no signal."""
+    after a desync and on blocks with no signal. cuda_graph: as for
+    make_timesharded_demod, the all-reduces and the halo inside the graph
+    over NCCL."""
     p = demod.params
     fs = p.nb_frame_samples
     f_loc = frames_per_shard
@@ -789,9 +860,9 @@ def make_coldstart_timesharded_demod(demod: OFDMDemodulator,
         ext = torch.cat([iq, _halo_from_right(mesh, iq[:, :halo],
                                               demod._as_iq(tail))], dim=1)
         # the mean level of all blocks: a sum, then a divide (gloo has no AVG)
-        l1 = _all_reduce(mesh, "time", demod.l1(iq),
+        l1 = _all_reduce(mesh, "time", sync_ops.l1_average(iq),
                          dist.ReduceOp.SUM) / mesh.shape["time"]
-        found, end_idx = demod.acquire(iq, l1)
+        found, end_idx = demod._acquire_impl(l1, iq)
         cand = torch.where(found, base + end_idx, big).to(torch.int32)
         global_end = _all_reduce(mesh, "time", cand, dist.ReduceOp.MIN)
         ok = global_end < big
@@ -823,5 +894,4 @@ def make_coldstart_timesharded_demod(demod: OFDMDemodulator,
         return (carry, torch.stack(bits, dim=1)[:, None],
                 torch.stack(valid, dim=1)[:, None])
 
-    run.halo = halo
-    return run
+    return _program_of(run, demod.device, mesh, cuda_graph, halo=halo)

@@ -24,8 +24,10 @@ The contract, for ``program = CapturedProgram(fn, device, state=...)``:
   runs ``fn`` on them eagerly, on a side stream: that run is the warm-up
   (it makes cuFFT's plans and loads the kernels' libraries before any
   capture) and its results are the call's results. The key's graph is
-  captured right after it; a failed capture raises with CUDA's error, and
-  nothing falls back to the eager run. From the second call on, the
+  captured right after it, with Python's garbage collector off (a
+  collection there could free another program's graph, which invalidates
+  the capture); a failed capture raises with CUDA's error, and nothing
+  falls back to the eager run. From the second call on, the
   arguments are copied into the static buffers (a numpy array through a
   pinned staging buffer, without blocking the host) and the graph is
   replayed.
@@ -41,7 +43,10 @@ The contract, for ``program = CapturedProgram(fn, device, state=...)``:
 * The kernels' launch counters (``LAUNCH_COUNTERS``) are Python integers
   that the wrappers bump when they launch, and a replay runs no Python: a
   capture records the counters' change and undoes it (capturing launches
-  nothing), and every replay adds that change again.
+  nothing), and every replay adds that change again. A counter registered
+  with ``register_counter(counter, keys)`` has only those keys added on a
+  replay: ``parallel/mesh.py:COLLECTIVES`` counts its collectives' calls
+  that way, while its host seconds count eager calls only.
 
 ``cuda_graph`` chooses: ``None`` captures on a CUDA device and calls ``fn``
 eagerly on the CPU (as the kernels' plain versions run only where the caller
@@ -51,6 +56,8 @@ the state it returns into the same buffers, and returns ``fn``'s own
 outputs.
 """
 
+import gc
+
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
@@ -58,6 +65,17 @@ from torch.utils import _pytree as pytree
 # The launch counters of the kernels' wrappers: dicts (or Counters) of ints,
 # registered by the kernel modules when they are imported.
 LAUNCH_COUNTERS = []
+# id(counter) -> the keys a replay adds to, for a counter registered with
+# register_counter(counter, keys); the others are undone after a capture
+_REPLAYED_KEYS = {}
+
+
+def register_counter(counter, keys=None):
+    """Count `counter` (a dict of numbers) on every replay: all its keys, or
+    only `keys`."""
+    LAUNCH_COUNTERS.append(counter)
+    if keys is not None:
+        _REPLAYED_KEYS[id(counter)] = tuple(keys)
 
 
 def use_graph(cuda_graph, device) -> bool:
@@ -71,6 +89,13 @@ def use_graph(cuda_graph, device) -> bool:
     return bool(cuda_graph)
 
 
+def as_argument(x, dtype):
+    """x as a program's argument: a tensor as it is, anything else as a numpy
+    array of `dtype` (a captured program stages it through pinned memory,
+    an eager one is given it as it is)."""
+    return x if torch.is_tensor(x) else np.asarray(x, dtype)
+
+
 def _read_counters():
     return [dict(c) for c in LAUNCH_COUNTERS]
 
@@ -79,8 +104,9 @@ def _undo_counters(before):
     """Set every launch counter back to `before`; returns what each gained."""
     gained = []
     for c, was in zip(LAUNCH_COUNTERS, before):
+        keys = _REPLAYED_KEYS.get(id(c), c)
         gained.append({k: v - was.get(k, 0) for k, v in c.items()
-                       if v != was.get(k, 0)})
+                       if v != was.get(k, 0) and k in keys})
         c.clear()
         c.update(was)
     return gained
@@ -249,11 +275,19 @@ class CapturedProgram:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         before = _read_counters()
+        # no garbage collection inside the capture: a program dropped in a
+        # reference cycle (an object holding a program of its own bound
+        # method) would free its graph and memory pool there, which
+        # invalidates the capture; torch.cuda.graph collects on entry
+        collect = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(g.graph, pool=self._pool,
                                   capture_error_mode="thread_local"):
                 g.outputs = self._run(args)
         finally:
+            if collect:
+                gc.enable()
             g.launches = _undo_counters(before)
         self._graphs[key] = g
         return out

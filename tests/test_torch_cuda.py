@@ -587,3 +587,158 @@ def test_released_program_captures_again(cuda):
     assert K.LAUNCHES == K.launched(viterbi_decode_fused=2)
     for x in (again, after, replay):
         assert all(torch.equal(a, b) for a, b in zip(first, x))
+
+
+def _tx_frames(cuda, nb_services=12, nb_frames=8, seed=3):
+    """Noisy soft-bit frames of a mode-I ensemble of nb_services EEP 3-A
+    services (the FIC names some only in the second frame) and one UEP
+    service, from the port's transmitter."""
+    cfgs = [SubchannelConfig(12 * i, 12, False, eep_type="A",
+                             eep_prot_level=2) for i in range(nb_services)]
+    cfgs.append(SubchannelConfig(12 * nb_services, 21, True,
+                                 uep_table_index=1))
+    tx = EnsembleTransmitter(1, services=[
+        ServiceSpec(0xA300 + i, i + 1, f"S{i}", c)
+        for i, c in enumerate(cfgs)], device=cuda)
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(nb_frames):
+        soft = tx.next_frame_bits().astype(np.float64)
+        soft += rng.normal(0.0, 40.0, soft.shape)
+        out.append(np.clip(np.round(soft), -127, 127).astype(np.int8))
+    return out
+
+
+def _tapped(rx, log):
+    inner = rx.fic.decode_fic
+
+    def decode_fic(bits):
+        fibs, err = inner(bits)
+        log.append(("fic", fibs))
+        return fibs, err
+    rx.fic.decode_fic = decode_fic
+    rx.on_audio_channel.append(lambda sub_id, ch: ch.events.on_frame_data
+                               .append(lambda p: log.append((sub_id, p))))
+    return rx
+
+
+@pytest.mark.parametrize("mode", ["exact", "tiled"])
+def test_captured_receiver_decodes_match_eager(cuda, mode):
+    """DabReceiver with its FIC decode and persistent decode groups
+    captured (the default on the card) against cuda_graph=False on the same
+    frames: the same FIBs and MSC payloads in the same order, the same K1
+    launches, the histories equal; the group of 12 captured once."""
+    from dab_radio_tpu_torch.models.receiver import DabReceiver
+    frames = _tx_frames(cuda)
+    logs, launches, rxs = {}, {}, {}
+    try:
+        msc.set_decode_mode(mode)
+        for g in (None, False):
+            rx = _tapped(DabReceiver(1, device=cuda, cuda_graph=g),
+                         logs.setdefault(g, []))
+            K.reset_launches()
+            for f in frames:
+                rx.process_frame(f)
+            torch.cuda.synchronize()
+            launches[g], rxs[g] = dict(K.LAUNCHES), rx
+    finally:
+        msc.set_decode_mode("exact")
+    assert logs[None] == logs[False] and len(logs[None]) > 100
+    assert launches[None] == launches[False]
+    (group,) = rxs[None]._groups.values()
+    assert group.program.captured and group.program.graphs == 1
+    assert rxs[None].fic._program.graphs == 1
+    for sub_id, ch in rxs[None].channels.items():
+        assert torch.equal(ch.msc.history,
+                           rxs[False].channels[sub_id].msc.history)
+
+
+def test_captured_msc_decoder_and_fleet_match_eager(cuda):
+    """MSCDecoder's decode_cif and decode_frame, and ReceiverFleet (its
+    stacked FIC decode and groups across receivers, pipelined), captured
+    against cuda_graph=False: bit-identical payloads and access order."""
+    from dab_radio_tpu_torch.models.fleet import ReceiverFleet
+    from dab_radio_tpu_torch.models.receiver import DabReceiver
+    frames = _tx_frames(cuda, nb_services=4, nb_frames=10)
+    other = _tx_frames(cuda, nb_services=4, nb_frames=10, seed=4)
+    cfg = SubchannelConfig(12, 12, False, eep_type="A", eep_prot_level=2)
+    decs = {g: msc.MSCDecoder(cfg, cuda, g) for g in (None, False)}
+    split = DabReceiver(1, device=cuda).split_frame
+    cifs = [split(f)[1] for f in frames]
+    for c in cifs:
+        assert decs[None].decode_frame(c) == decs[False].decode_frame(c)
+        for row in c:
+            assert decs[None].decode_cif(row) == decs[False].decode_cif(row)
+    assert decs[None]._program.graphs == 2
+    logs = {}
+    for g in (None, False):
+        fleet = ReceiverFleet(2, 1, pipeline_depth=1, device=cuda,
+                              cuda_graph=g)
+        for rx in fleet.receivers:
+            _tapped(rx, logs.setdefault(g, []))
+        for f, o in zip(frames, other):
+            fleet.process_frames([(0, f), (1, o)])
+        fleet.flush()
+    assert logs[None] == logs[False] and len(logs[None]) > 20
+
+
+@pytest.mark.parametrize("K_", [1, 2])
+def test_captured_multistream_round_matches_eager(cuda, K_):
+    """MultiStreamDemodulator's round (dequantise, step or scan, masked
+    merge) captured against cuda_graph=False: the same frames, bits kept on
+    the card equal, the carry equal."""
+    from dab_radio_tpu_torch.models.multistream import MultiStreamDemodulator
+    blk, _ = _graph_rounds(cuda, F=4, nb_rounds=3)[0]
+    runs = {}
+    for g in (None, False):
+        ms = MultiStreamDemodulator(OFDMDemodulator(2, device=cuda), 2,
+                                    frames_per_step=K_, ingest="u8",
+                                    fetch_bits=False, device=cuda,
+                                    cuda_graph=g)
+        assert ms.program.captured == (g is None)
+        got = []
+        for lo in range(0, blk.shape[1], 60000):
+            for i in range(2):
+                ms.push(i, blk[i, lo:lo + 60000])
+            got += ms.step()
+        runs[g] = ([(i, b.cpu()) for i, b in got], ms.carry)
+    (a, ca), (b, cb) = runs[None], runs[False]
+    assert [i for i, _ in a] == [i for i, _ in b] and len(a) >= 4
+    assert all(torch.equal(x, y) for (_, x), (_, y) in zip(a, b))
+    assert all(torch.equal(x, y) for x, y in zip(ca, cb))
+
+
+def test_captured_acquire_and_modulator_match_eager(cuda):
+    """acquire and l1 (keyed by block shape) and the modulator's two entries
+    captured against cuda_graph=False: bit-identical, results kept across
+    calls."""
+    from dab_radio_tpu_torch.models.modulator import OFDMModulator
+    graph = OFDMDemodulator(2, device=cuda)
+    eager = OFDMDemodulator(2, device=cuda, cuda_graph=False)
+    blk, _ = _graph_rounds(cuda, F=2, nb_rounds=3)[0]
+    iq = ((blk[0].astype(np.float32) - 127.5) / np.float32(127.5)
+          ).view(np.complex64)
+    W = graph.window_len
+    for lo in range(0, iq.shape[0] - W, W // 3):
+        win = iq[lo:lo + W]
+        l1g, l1e = graph.l1(win), eager.l1(win)
+        assert torch.equal(l1g, l1e)
+        for a, b in zip(graph.acquire(win, l1g), eager.acquire(win, l1e)):
+            assert torch.equal(a, b)
+    assert graph._acquire_program.graphs == 1
+    mods = {g: OFDMModulator(1, cuda, cuda_graph=g) for g in (None, False)}
+    p = mods[None].params
+    rng = np.random.default_rng(9)
+    kept = []
+    for _ in range(3):
+        bits = rng.integers(0, 2, (p.nb_data_symbols,
+                                   2 * p.nb_data_carriers)).astype(np.uint8)
+        data = rng.integers(0, 256, p.nb_data_symbols * p.nb_data_carriers
+                            // 4).astype(np.uint8)
+        got = mods[None].modulate_frame(bits)
+        assert torch.equal(got, mods[False].modulate_frame(bits))
+        kept.append((got, got.clone()))
+        assert np.array_equal(mods[None].modulate_reference_bytes(data),
+                              mods[False].modulate_reference_bytes(data))
+    assert all(torch.equal(a, b) for a, b in kept)
+    assert mods[None]._bits_program.graphs == 1

@@ -276,13 +276,16 @@ def push_all(ms, streams, ingest):
 
 @pytest.mark.parametrize("K", [1, 2])
 def test_multistream_keeps_carry_and_bits_across_replays(ms_streams, K):
-    """MultiStreamDemodulator on a demodulator whose programs reuse their
-    output buffers: the masked merge reads the carry of the previous call
-    and the frames' device bits are kept over later calls; both equal the
-    eager run's, and the JAX batch emits the same frames."""
+    """MultiStreamDemodulator whose round program (the frame step or scan
+    and the masked merge, with the carry held by the program) reuses its
+    output buffers: the frames' device bits are kept over later calls and
+    equal the eager run's, as does the carry, and the JAX batch emits the
+    same frames."""
     kw = dict(frames_per_step=K, ingest="u8", fetch_bits=False, device=CPU)
     eager = MultiStreamDemodulator(OFDMDemodulator(MODE, device=CPU), 3, **kw)
-    replay = MultiStreamDemodulator(replayed_demod(), 3, **kw)
+    replay = MultiStreamDemodulator(OFDMDemodulator(MODE, device=CPU), 3,
+                                    **kw)
+    replay.program = Replayed(replay.program)
     want, got = push_all(eager, ms_streams, "u8"), push_all(
         replay, ms_streams, "u8")
     assert [i for i, _ in got] == [i for i, _ in want]
@@ -424,18 +427,113 @@ def test_cuda_graph_true_raises_on_the_cpu(build):
         build()
 
 
-def test_cuda_graph_true_raises_with_a_mesh():
-    """The mesh step stays eager: True raises, the default runs it eagerly
-    (the plain function), on the CPU as it would on the card."""
-    one = ReceiverMesh((1, 1, 1))
+def test_cuda_graph_true_raises_with_a_mesh(tmp_path):
+    """A mesh over gloo stays eager (gloo moves a CUDA tensor through host
+    memory): True raises ValueError naming gloo, the default runs the plain
+    function. A mesh without a process group has no collective: it takes
+    cuda_graph as one device does (True on the CPU raises, the default is
+    eager here)."""
+    import torch.distributed as dist
+    from dab_radio_tpu_torch.parallel.mesh import (
+        make_coldstart_timesharded_demod, make_receiver_mesh,
+        make_timesharded_demod)
     kw = dict(subchannels_per_shard=1, ensembles_per_shard=1, device=CPU)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    one = ReceiverMesh((1, 1, 1))
+    with pytest.raises(ValueError, match="needs a CUDA"):
         multichip_receiver_step(one, MODE, 1, cuda_graph=True, **kw)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        FusedFleet(1, [own(c) for c in LAYOUT_A], MODE, 1, device=CPU,
-                   mesh=one, cuda_graph=True)
     step, _ = multichip_receiver_step(one, MODE, 1, **kw)
     assert not isinstance(step, CapturedProgram)
-    fleet = FusedFleet(1, [own(c) for c in LAYOUT_A], MODE, 1, device=CPU,
-                       mesh=one)
-    assert not fleet.program.captured
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdzv",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_receiver_mesh(1)
+        demod = OFDMDemodulator(MODE, device=CPU)
+        for build in (
+                lambda g: multichip_receiver_step(mesh, MODE, 1,
+                                                  cuda_graph=g, **kw),
+                lambda g: FusedFleet(1, [own(c) for c in LAYOUT_A], MODE, 1,
+                                     device=CPU, mesh=mesh, cuda_graph=g),
+                lambda g: make_timesharded_demod(demod, 1, mesh=mesh,
+                                                 cuda_graph=g),
+                lambda g: make_coldstart_timesharded_demod(demod, mesh, 1,
+                                                           cuda_graph=g)):
+            with pytest.raises(ValueError, match="gloo"):
+                build(True)
+        step, _ = multichip_receiver_step(mesh, MODE, 1, **kw)
+        assert not isinstance(step, CapturedProgram)
+        fleet = FusedFleet(1, [own(c) for c in LAYOUT_A], MODE, 1,
+                           device=CPU, mesh=mesh)
+        assert not fleet.program.captured
+    finally:
+        dist.destroy_process_group()
+
+
+def test_replay_adds_the_collectives_its_capture_recorded():
+    """COLLECTIVES' calls are counted on a replay, through Replayed made to
+    keep the counters as a captured program does (the warm-up counts, the
+    capture is undone, each replay adds what the capture recorded); its
+    host seconds count the eager call alone."""
+    from dab_radio_tpu_torch.parallel import mesh as M
+    assert M.COLLECTIVES in graphs.LAUNCH_COUNTERS
+
+    def two_collectives(x):
+        for _ in range(2):
+            with M._counted():
+                x = x + 1
+        return x
+
+    class CountingReplayed(Replayed):
+        """The counter bookkeeping of CapturedProgram around Replayed: the
+        first call is the warm-up, then a capture whose counts are undone
+        and recorded; a later call counts what the capture recorded."""
+        gained = None
+
+        def __call__(self, *args):
+            if self.gained is None:
+                out = super().__call__(*args)           # the warm-up
+                before = graphs._read_counters()
+                super().__call__(*args)                 # the capture
+                self.gained = graphs._undo_counters(before)
+                return out
+            before = graphs._read_counters()
+            out = super().__call__(*args)
+            graphs._undo_counters(before)               # no Python runs
+            graphs._add_counters(self.gained)
+            return out
+
+    M.reset_collectives()
+    prog = CountingReplayed(CapturedProgram(two_collectives, CPU))
+    prog(torch.zeros(2))
+    warm = dict(M.COLLECTIVES)
+    assert warm["calls"] == 2 and warm["seconds"] > 0
+    for _ in range(3):
+        assert torch.equal(prog(torch.zeros(2)), torch.full((2,), 2.0))
+    assert M.COLLECTIVES["calls"] == 2 + 3 * 2
+    assert M.COLLECTIVES["seconds"] == warm["seconds"]
+    M.reset_collectives()
+
+
+def test_shutdown_frees_the_graphs_that_hold_collectives(tmp_path):
+    """A program captured with a mesh's collectives inside is noted, and
+    distributed.shutdown() frees its graphs before it takes the process
+    group down (NCCL waits for ever to take down a communicator that a
+    live graph uses); a program without collectives is not noted."""
+    from dab_radio_tpu_torch.parallel import distributed
+    from dab_radio_tpu_torch.parallel import mesh as M
+
+    class Held:
+        captured, device, released = True, CPU, 0
+
+        def release(self):
+            self.released += 1
+    assert distributed.initialize(f"file://{tmp_path}/rdzv", 1, 0, "gloo")
+    try:
+        mesh = M.make_receiver_mesh(1)
+        held, alone = Held(), Held()
+        assert M.track_collectives(held, mesh) is held
+        M.track_collectives(alone, ReceiverMesh((1, 1, 1)))
+        M.track_collectives(CapturedProgram(torch.neg, CPU), mesh)
+        assert list(M._COLLECTIVE_PROGRAMS) == [held]
+    finally:
+        distributed.shutdown()
+    assert held.released == 1 and alone.released == 0
