@@ -55,7 +55,11 @@ It exits non-zero, printing no result, when there is no card. Phases:
    subchannel's access units byte-exact, valid FIBs on every stream, and
    exactly one fused Viterbi launch a round, of 9,728 messages of 1,542
    steps; the time of each round, the device time of the round's step, the
-   host's byte-layer time and the real-time ensembles they amount to;
+   host's byte-layer time and the real-time ensembles they amount to; then
+   the same run with the byte layer on 4 consume workers and the rounds
+   staged 2 ahead (--consume-workers 4 --prefetch 2): every access unit
+   byte-exact, every stream line and the totals equal to the default run's,
+   one fused launch a round;
 7. the fleet path tiled, at full width: the same 16 streams through
    fleet_serve --viterbi tiled: every access unit byte-exact, exactly one
    windowed launch a round, of 126,464 windows, with the round's times
@@ -145,10 +149,27 @@ once under torch.profiler (device busy share, device time by kernel), after
 the fleet round's stop_after ladder in ms a round, eager and captured, and
 the capture's frames through a DabReceiver captured and one eager with the
 stage spans on (ms a frame of radio/fic_decode and radio/msc_channels,
-graphs, reserved memory). Then
-the fleet path: 16 streams through FusedFleet, 5 warm rounds under
-torch.profiler (round wall, device busy share, device time by kernel). The
-numbers are printed and written to build/chip_smoke/measure.json.
+graphs, reserved memory). Then the host byte layer part by part
+(BYTE_LAYER_PARTS, line "measure: byte_layer"): the radio_cli run once more
+with the part timers, radio/msc_channels split into the superframe parts,
+the RS decode and the group dispatch; and FusedFleet over the fleet path's
+16 streams, 6 rounds a pass, four fresh passes without and with the timers
+in turns: _consume's wall both ways, each part's calls and ms a round and
+its share, the rest as "other", the wait for the round's bytes, and the
+timers' own cost. Then fleet_serve over the 16 streams, 6 rounds, by
+default, with --consume-workers 4, with --prefetch 2 and with both (line
+"measure: serving"): round walls, the loop's pace, real-time ensembles, the
+byte layer's split (thread time under the pool), FeederStats; every access
+unit byte-exact and the totals equal. Then the older batched path at
+pipeline depths 0 and 2, each in a child process (this script with
+--batched-profile) under torch.profiler after its first steps (line
+"measure: batched"): step() and process_frames walls, device time, busy
+share, kernel rows; every access unit byte-exact, the deferred run the
+synchronous one's from its later start on. Then the radio_cli run under
+torch.profiler, and the fleet path through FusedFleet: 16 streams, 5 warm
+rounds under torch.profiler (round wall, device busy share, device time by
+kernel). The numbers are printed and written to
+build/chip_smoke/measure.json.
 
     python3 chip_smoke.py --mesh-only --mesh-backend nccl
 
@@ -218,6 +239,17 @@ VARIANT_K = 4
 BATCHED_STREAMS = 4
 DECODE_WARM = 3             # frames before the main path's decodes are steady
 BATCHED_K = 4
+# --measure: rounds of the fleet runs (one cold), the byte layer's passes
+# without and with the part timers, the serving options compared, and the
+# batched path's steps before its profiler session starts (the captures)
+MEASURE_ROUNDS = 6
+BYTE_LAYER_PASSES = (False, True, True, False)
+SERVING_CONFIGS = {"default": (), "workers": ("--consume-workers", "4"),
+                   "prefetch": ("--prefetch", "2"),
+                   "both": ("--consume-workers", "4", "--prefetch", "2")}
+BATCHED_PROFILE_DEPTHS = (0, 2)
+BATCHED_PROFILE_WARM = 3
+BATCHED_PROFILE_TIMEOUT_S = 300
 # the tx phase: the main path's ensemble from simulate_transmitter with
 # X-PAD repeated as a carousel (the FIC announces services 12 to 18 in the
 # second frame, after the first round of their X-PAD), shifted, with an
@@ -962,6 +994,7 @@ class _FleetTimers:
 
     def __init__(self):
         self.round_wall_s, self.consume_s, self.step_events = [], [], []
+        self.round_start_s = []     # host clock at each process_round call
         self.step_launches = []     # per round: (kernel counts, counts by T)
 
     def __enter__(self):
@@ -975,6 +1008,7 @@ class _FleetTimers:
             if not isinstance(fleet.program, _TimedProgram):
                 fleet.program = _TimedProgram(fleet.program, timers)
             t0 = time.perf_counter()
+            timers.round_start_s.append(t0)
             process_round(fleet, *args, **kw)
             timers.round_wall_s.append(time.perf_counter() - t0)
 
@@ -994,6 +1028,254 @@ class _FleetTimers:
         import torch
         torch.cuda.synchronize()
         return [a.elapsed_time(b) for a, b in self.step_events]
+
+    def cadence_s(self):
+        """The host clock between successive process_round calls: the
+        serving loop's pace, whatever it does between rounds."""
+        return [b - a for a, b in zip(self.round_start_s,
+                                      self.round_start_s[1:])]
+
+
+# The parts of the host byte layer: part -> (module, class, method). A part
+# is timed where it is called, the fleet's FIB CRC and FIG ingest, the
+# superframe processors (firecode and assembly, the AU split and CRC), the
+# RS decoder (FusedFleet builds its own inside _consume_batched, so the
+# class is wrapped), the other kinds' processors, the observers; and, for
+# the one-stream receiver, the dispatch of a decode group.
+BYTE_LAYER_PARTS = {
+    "check_fibs": ("models.fused_fleet", "FusedFleet", "_check_fibs"),
+    "ingest_fibs": ("models.fused_fleet", "FusedFleet", "_ingest_fibs"),
+    "push_frame": ("dab.aac", "SuperframeProcessor", "push_frame"),
+    "rs_decode": ("ops.rs", "ReedSolomonDecoder", "decode"),
+    "finish": ("dab.aac", "SuperframeProcessor", "finish"),
+    "other_kinds": ("models.fused_fleet", "FusedFleet", "_other_kinds"),
+    "fire": ("models.fused_fleet", "FusedFleet", "_fire"),
+    "msc_dispatch": ("dab.msc", "MSCDecodeGroup", "dispatch"),
+}
+# timed apart: the round's container, and the wait for the round's bytes,
+# which FusedFleet._materialize does before it calls _consume
+BYTE_LAYER_CONSUME = ("models.fused_fleet", "FusedFleet", "_consume")
+BYTE_LAYER_FETCH = ("models.fused_fleet", "_Fetch", "arrays")
+
+
+class _ByteLayerTimers:
+    """While active, times the host byte layer part by part
+    (BYTE_LAYER_PARTS): each part's method is wrapped at class level and put
+    back on exit, also after an exception. A timed call made inside another
+    one (a packet processor's RS decode inside _other_kinds) is neither
+    timed nor counted: the parts never overlap. process_frame is no part, so
+    the push_frame, RS decode and finish it makes count each once. Sums are
+    kept per thread, so under the consume workers' pool a part's time is
+    thread time. Each FusedFleet._consume is a round: its wall and, at its
+    end, each part's time and calls since its start, split into the
+    consuming thread's and the other threads'. _Fetch.arrays (the wait for
+    the round's bytes) is timed like a part but outside _consume."""
+
+    def __init__(self):
+        import threading
+        self._tls = threading.local()
+        self._lock = threading.Lock()
+        self.threads = []        # (thread name, {part: [ns, calls]})
+        self.rounds = []         # per _consume: see _round_record
+        self._saved = []
+
+    @staticmethod
+    def _target(spec):
+        import importlib
+        module, cls, name = spec
+        return getattr(importlib.import_module(
+            "dab_radio_tpu_torch." + module), cls), name
+
+    def _acc(self):
+        acc = getattr(self._tls, "acc", None)
+        if acc is None:
+            import threading
+            acc = self._tls.acc = {}
+            with self._lock:
+                self.threads.append((threading.current_thread().name, acc))
+        return acc
+
+    def _timed(self, part, fn):
+        tls, acc_of = self._tls, self._acc
+
+        def timed(*args, **kw):
+            if getattr(tls, "inside", False):
+                return fn(*args, **kw)
+            tls.inside = True
+            t0 = time.perf_counter_ns()
+            try:
+                return fn(*args, **kw)
+            finally:
+                dt = time.perf_counter_ns() - t0
+                tls.inside = False
+                rec = acc_of().setdefault(part, [0, 0])
+                rec[0] += dt
+                rec[1] += 1
+        return timed
+
+    def _totals(self):
+        """{(thread index, part): (ns, calls)} so far."""
+        with self._lock:
+            threads = list(self.threads)
+        return {(k, part): tuple(rec) for k, (_, acc) in enumerate(threads)
+                for part, rec in list(acc.items())}
+
+    def _container(self, fn):
+        timers = self
+
+        def consume(*args, **kw):
+            acc = timers._acc()
+            before = timers._totals()
+            t0 = time.perf_counter_ns()
+            try:
+                return fn(*args, **kw)
+            finally:
+                wall = time.perf_counter_ns() - t0
+                timers.rounds.append(timers._round_record(
+                    wall, before, timers._totals(), acc))
+        return consume
+
+    def _round_record(self, wall_ns, before, after, acc):
+        """One round: {"consume_ms", "parts": {part: [ms on the consuming
+        thread, ms on other threads, calls]}}."""
+        with self._lock:
+            mine = next(k for k, (_, a) in enumerate(self.threads)
+                        if a is acc)
+        parts = {}
+        for (k, part), (ns, calls) in after.items():
+            ns0, calls0 = before.get((k, part), (0, 0))
+            if calls == calls0:
+                continue
+            rec = parts.setdefault(part, [0.0, 0.0, 0])
+            rec[0 if k == mine else 1] += (ns - ns0) / 1e6
+            rec[2] += calls - calls0
+        return {"consume_ms": wall_ns / 1e6, "parts": parts}
+
+    def __enter__(self):
+        try:
+            for part, spec in BYTE_LAYER_PARTS.items():
+                self._wrap(spec, lambda fn, p=part: self._timed(p, fn))
+            self._wrap(BYTE_LAYER_FETCH,
+                       lambda fn: self._timed("fetch_wait", fn))
+            self._wrap(BYTE_LAYER_CONSUME, self._container)
+        except BaseException:
+            self._restore()
+            raise
+        return self
+
+    def _wrap(self, spec, make):
+        cls, name = self._target(spec)
+        self._saved.append((cls, name, cls.__dict__[name]))
+        setattr(cls, name, make(getattr(cls, name)))
+
+    def _restore(self):
+        while self._saved:
+            cls, name, fn = self._saved.pop()
+            setattr(cls, name, fn)
+
+    def __exit__(self, *exc):
+        self._restore()
+
+    def calls(self):
+        """{part: calls} over every thread, fetch_wait included."""
+        out = {}
+        for _, acc in self.threads:
+            for part, (_, n) in acc.items():
+                out[part] = out.get(part, 0) + n
+        return out
+
+    def thread_ms(self):
+        """{thread name: {part: ms}} over the whole run."""
+        out = {}
+        for name, acc in self.threads:
+            row = out.setdefault(name, {})
+            for part, (ns, _) in acc.items():
+                row[part] = row.get(part, 0.0) + ns / 1e6
+        return out
+
+    def split(self, skip=1):
+        """The rounds after the first `skip` (the cold ones): _consume's
+        wall a round, each part's ms (thread time) and calls a round with its
+        share of _consume, the rest of _consume on its own thread as
+        "other", the other threads' part time, and fetch_wait a round."""
+        rounds = self.rounds[skip:]
+        n = max(len(rounds), 1)
+        consume = [r["consume_ms"] for r in rounds]
+        total = sum(consume) or 1.0
+        parts = {}
+        for part in BYTE_LAYER_PARTS:
+            recs = [r["parts"].get(part, [0.0, 0.0, 0]) for r in rounds]
+            if not any(rec[2] for rec in recs):
+                continue
+            ms = [a + b for a, b, _ in recs]
+            parts[part] = {"calls_per_round": sum(c for *_, c in recs) / n,
+                           "ms_per_round": ms,
+                           "share_of_consume": sum(ms) / total}
+        own = [sum(r["parts"].get(p, [0.0])[0] for p in BYTE_LAYER_PARTS)
+               for r in rounds]
+        other = [c - o for c, o in zip(consume, own)]
+        return {"rounds": len(rounds), "consume_ms": consume,
+                "parts": parts, "other_ms": other,
+                "other_share": sum(other) / total,
+                "parts_on_consuming_thread_ms": own,
+                "parts_on_other_threads_ms": [
+                    sum(r["parts"].get(p, [0.0, 0.0])[1]
+                        for p in BYTE_LAYER_PARTS) for r in rounds],
+                "fetch_wait_calls": self.calls().get("fetch_wait", 0),
+                "fetch_wait_ms_total": sum(
+                    acc.get("fetch_wait", [0])[0]
+                    for _, acc in self.threads) / 1e6,
+                "threads_ms": self.thread_ms()}
+
+    @staticmethod
+    def call_cost_us(n=200000):
+        """The host time one wrapper adds to a call, in µs: a no-op called
+        n times wrapped against n times bare."""
+        timers = _ByteLayerTimers()
+
+        def noop():
+            return None
+        wrapped = timers._timed("noop", noop)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            noop()
+        bare = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(n):
+            wrapped()
+        return (time.perf_counter() - t0 - bare) / n * 1e6
+
+
+class _FeederWatch:
+    """While active, keeps every DoubleBufferedFeeder made in this process
+    (fleet_serve --prefetch restages its feeder on a drift correction), so
+    that their FeederStats can be read after the run."""
+
+    def __enter__(self):
+        from dab_radio_tpu_torch.host.feeder import DoubleBufferedFeeder
+        self.feeders, self._cls = [], DoubleBufferedFeeder
+        self._init = init = DoubleBufferedFeeder.__dict__["__init__"]
+        feeders = self.feeders
+
+        def watched(feeder, *args, **kw):
+            init(feeder, *args, **kw)
+            feeders.append(feeder)
+        DoubleBufferedFeeder.__init__ = watched
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.__init__ = self._init
+
+    def stats(self):
+        """The feeders' FeederStats summed, or None without a feeder."""
+        if not self.feeders:
+            return None
+        keys = ("rounds", "bytes", "stage_busy_s", "producer_wait_s",
+                "consumer_wait_s")
+        out = {k: sum(getattr(f.stats, k) for f in self.feeders)
+               for k in keys}
+        out["feeders"] = len(self.feeders)
+        return out
 
 
 def _serve(argv):
@@ -1314,26 +1596,31 @@ def graph_path(dev, paths):
     return launches
 
 
-def fleet_path(dev, paths, sents, viterbi="exact", port=0):
+def fleet_path(dev, paths, sents, viterbi="exact", port=0, options=(),
+               nb_frames=None):
     """fleet_serve on 16 streams of the 18-service ensemble, 8 frames a
     round: every access unit byte-exact, one Viterbi launch a round: the
     fused kernel on 9,728 messages of 1,542 steps, or with viterbi "tiled"
     the windowed one on their 126,464 windows of 320. A port other than 0
-    serves the status pages there (--port)."""
+    serves the status pages there (--port); `options` are more flags of
+    fleet_serve. Returns (launch counts, stdout lines, timers)."""
     tag = "fleet path" if viterbi == "exact" else f"fleet path ({viterbi})"
+    if options:
+        tag += " " + " ".join(options)
     scrape = os.path.join(WORK, f"fleet_scrape_{viterbi}")
     shutil.rmtree(scrape, ignore_errors=True)
     order = [k % len(paths) for k in range(FLEET_STREAMS)]
     layout = ",".join(f"{48 * i}:48:EEP3A" for i in range(NB_SERVICES))
     argv = ["-i", *[paths[k] for k in order], "--subchannels", layout,
             "--frames-per-step", str(FLEET_K), "--scraper-output", scrape,
-            "--viterbi", viterbi, "--backend", "cuda"]
+            "--viterbi", viterbi, "--backend", "cuda", *options]
     if port:
         argv += ["--port", str(port)]
         tag += " --port"
     lines, _, timers, launches, by_t, wall = _serve(argv)
     rounds = lines[-1]["rounds"]
-    check(rounds == (NB_FRAMES - 1) // FLEET_K, f"{rounds} rounds")
+    check(rounds == ((nb_frames or NB_FRAMES) - 1) // FLEET_K,
+          f"{rounds} rounds")
     nb_aus = _check_streams(lines, scrape, [sents[k] for k in order])
     kernel, T = {"exact": ("viterbi_decode_fused", 1542),
                  "tiled": ("viterbi_decode_windows", WINDOW_L)}[viterbi]
@@ -1357,7 +1644,25 @@ def fleet_path(dev, paths, sents, viterbi="exact", port=0):
         + json.dumps([round(x, 4) for x in timers.consume_s]))
     log(f"{tag}: warm round wall {warm:.4f} s for {air:.3f} s of air: "
         f"real-time ensembles = {air / warm:.3f}")
-    return launches
+    return launches, lines, timers
+
+
+FLEET_OPTIONS = ("--consume-workers", "4", "--prefetch", "2")
+
+
+def fleet_phase(dev, paths, sents):
+    """Phase fleet: the fleet path as fleet_serve runs it by default, then
+    once more with the byte layer on 4 consume workers and the rounds
+    staged 2 ahead by the feeder (FLEET_OPTIONS): every access unit
+    byte-exact again, every stream line and the totals equal to the
+    default run's, one fused launch a round. Returns both runs' launches."""
+    launches, lines, _ = fleet_path(dev, paths, sents)
+    more, lines_opt, _ = fleet_path(dev, paths, sents, options=FLEET_OPTIONS)
+    check(lines_opt == lines,
+          f"fleet_serve {' '.join(FLEET_OPTIONS)}: stream lines or totals "
+          f"differ from the default run's: {lines_opt[-1]} against "
+          f"{lines[-1]}")
+    return {k: launches[k] + more[k] for k in launches}
 
 
 def discovery_path(dev, paths, sents):
@@ -1463,13 +1768,14 @@ def variants_path(dev, paths):
     return launches
 
 
-def _drive_batched(ms, fleet, paths):
+def _drive_batched(ms, fleet, paths, on_step=None):
     """Push each capture of `paths` into the stream of its index that `ms`
     (MultiStreamDemodulator, fetch_bits off) holds, and step until nothing
     comes, feeding the frames to `fleet` (ReceiverFleet of ms's rows) a
-    frame a receiver a round. Returns ({(global stream, subchannel): [AU
-    bytes]}, demodulator step seconds, process_frames seconds, {T: K1
-    launches} of each round)."""
+    frame a receiver a round; on_step(i), where given, is called before the
+    i-th step. Returns ({(global stream, subchannel): [AU bytes]},
+    demodulator step seconds, process_frames seconds, {T: K1 launches} of
+    each round)."""
     import torch
     from dab_radio_tpu_torch.kernels import viterbi_acs as K
     lo, hi = ms.rows
@@ -1484,6 +1790,8 @@ def _drive_batched(ms, fleet, paths):
         ms.push(b, np.fromfile(paths[b], np.uint8))
     step_s, round_s, per_round = [], [], []
     while True:
+        if on_step is not None:
+            on_step(len(step_s))
         t0 = time.perf_counter()
         res = ms.step()
         torch.cuda.synchronize()
@@ -2480,7 +2788,7 @@ def _monitor_fleet(dev, paths, sents):
     th.start()
     FusedFleet.process_round = gated
     try:
-        launches = fleet_path(dev, paths, sents, port=port)
+        launches = fleet_path(dev, paths, sents, port=port)[0]
     finally:
         FusedFleet.process_round = process_round
         done.set()
@@ -2809,7 +3117,7 @@ def measure(dev, nb_frames):
     from dab_radio_tpu_torch.apps import radio_cli
     from dab_radio_tpu_torch.kernels import viterbi_acs as K
     from dab_radio_tpu_torch.utils.profiler import get_profiler
-    paths, _ = make_captures(dev, nb_frames)
+    paths, sents = make_captures(dev, nb_frames)
     argv = ["-i", paths[0], "-F", "u8", "--benchmark", "--backend", "cuda"]
     air = nb_frames * 0.096
 
@@ -2834,8 +3142,21 @@ def measure(dev, nb_frames):
     prof.reset()
     prof.enabled = True
     out["spans_wall_s"] = run()
-    prof.enabled = False
     out["spans"] = prof.table()
+    # the same run with the byte layer's part timers on: the split of
+    # radio/msc_channels, and that span with the timers beside it without
+    prof.reset()
+    with _ByteLayerTimers() as bl:
+        wall = run()
+    prof.enabled = False
+    cli = _radio_cli_split(bl, prof.table(), nb_frames)
+    cli["wall_s"] = wall
+    cli["msc_channels_ms_per_frame_without_timers"] = (
+        out["spans"]["radio/msc_channels"]["total_us"] / 1e3 / nb_frames)
+    out["byte_layer"] = {"fleet": measure_byte_layer(dev, paths),
+                         "radio_cli": cli}
+    out["serving"] = measure_serving(dev, paths, sents)
+    out["batched"] = measure_batched(paths, sents, nb_frames)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
         out["profiled_wall_s"] = run()
     (out["device_time_ms"], out["device_busy_share"],
@@ -2884,26 +3205,33 @@ def measure_ladder(dev, paths):
     return ladder
 
 
-def measure_fleet(dev, paths):
-    """The fleet path through FusedFleet: 16 streams x 8 frames a round, one
-    cold round, then 5 warm rounds under torch.profiler. Needs captures of
-    at least 6 * 8 + 1 frames."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from dab_radio_tpu_torch.kernels import viterbi_acs as K
-    from dab_radio_tpu_torch.models.fused_fleet import FusedFleet
-    fleet = FusedFleet(FLEET_STREAMS, _fleet_cfgs(), 1, FLEET_K, device=dev)
+def _measure_rounds(fleet, paths):
+    """The fleet path's 16 streams, aligned, as a function of the round
+    number r -> (blk, tail) u8 numpy, for r < MEASURE_ROUNDS."""
     chunk, tb = 2 * fleet.round_samples, fleet.tail_bytes
     streams = _aligned_streams(fleet, paths)
     streams = [streams[k % len(paths)] for k in range(FLEET_STREAMS)]
     nb_rounds = min(s.shape[0] - tb for s in streams) // chunk
-    check(nb_rounds >= 6, f"captures hold {nb_rounds} rounds, 6 are needed")
+    check(nb_rounds >= MEASURE_ROUNDS, f"captures hold {nb_rounds} rounds, "
+          f"{MEASURE_ROUNDS} are needed")
 
     def round_at(r):
         return (np.stack([s[r * chunk:(r + 1) * chunk] for s in streams]),
                 np.stack([s[(r + 1) * chunk:(r + 1) * chunk + tb]
                           for s in streams]))
+    return round_at
 
+
+def measure_fleet(dev, paths):
+    """The fleet path through FusedFleet: 16 streams x 8 frames a round, one
+    cold round, then 5 warm rounds under torch.profiler. Needs captures of
+    at least MEASURE_ROUNDS * 8 + 1 frames."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dab_radio_tpu_torch.kernels import viterbi_acs as K
+    from dab_radio_tpu_torch.models.fused_fleet import FusedFleet
+    fleet = FusedFleet(FLEET_STREAMS, _fleet_cfgs(), 1, FLEET_K, device=dev)
+    round_at = _measure_rounds(fleet, paths)
     out = {"streams": FLEET_STREAMS, "frames_per_round": FLEET_K,
            "lanes": FLEET_LANES, "air_s_per_round": FLEET_STREAMS * FLEET_K
            * 0.096}
@@ -2937,6 +3265,243 @@ def measure_fleet(dev, paths):
     return out
 
 
+def _round_stats(rounds):
+    """The byte layer's split (a _ByteLayerTimers.split) checked: the parts
+    timed on the consuming thread fit inside _consume (a part counted twice
+    would not), within 5% for the host clock's own cost."""
+    for c, own in zip(rounds["consume_ms"],
+                      rounds["parts_on_consuming_thread_ms"]):
+        check(own <= 1.05 * c, f"byte layer: the parts take {own:.3f} ms "
+              f"of a {c:.3f} ms _consume")
+    return rounds
+
+
+def _split_line(tag, split):
+    """One readable line of a byte-layer split: _consume's mean a round,
+    then each part (mean ms a round, share, calls a round), the largest
+    first, and other."""
+    n = max(split["rounds"], 1)
+    parts = sorted(split["parts"].items(),
+                   key=lambda kv: -sum(kv[1]["ms_per_round"]))
+    log(f"{tag}: _consume {sum(split['consume_ms']) / n:.3f} ms a round; "
+        + ", ".join(f"{p} {sum(v['ms_per_round']) / n:.3f} ms "
+                    f"({100 * v['share_of_consume']:.1f}%, "
+                    f"{v['calls_per_round']:g} calls)" for p, v in parts)
+        + f", other {sum(split['other_ms']) / n:.3f} ms "
+        f"({100 * split['other_share']:.1f}%)")
+
+
+def measure_byte_layer(dev, paths):
+    """The fleet round's host byte layer part by part: FusedFleet over the
+    16 streams, MEASURE_ROUNDS rounds (the first cold) a pass, fresh each
+    pass, BYTE_LAYER_PASSES without and with the part timers, in turns:
+    _consume's wall both ways, the split of the timed passes, and the
+    wrappers' cost (µs a call, times the calls a round). Every pass decodes
+    the same access units."""
+    import contextlib
+    import torch
+    from dab_radio_tpu_torch.models.fused_fleet import FusedFleet
+    out = {"passes": [], "call_cost_us": _ByteLayerTimers.call_cost_us()}
+    results = set()
+    for timed in BYTE_LAYER_PASSES:
+        fleet = FusedFleet(FLEET_STREAMS, _fleet_cfgs(), 1, FLEET_K,
+                           device=dev)
+        round_at = _measure_rounds(fleet, paths)
+        parts = _ByteLayerTimers() if timed else contextlib.nullcontext()
+        with parts as bl, _FleetTimers() as ft:
+            for r in range(MEASURE_ROUNDS):
+                blk, tail = round_at(r)
+                fleet.process_round(blk, defer_fetch=True, tail_u8=tail)
+            fleet.flush()
+            torch.cuda.synchronize()
+        results.add((fleet.total_aus, tuple(fleet.last_fib_ok.tolist())))
+        rec = {"timed": timed, "consume_ms": [x * 1e3 for x in ft.consume_s],
+               "round_wall_s": ft.round_wall_s}
+        if timed:
+            rec["split"] = _round_stats(bl.split())
+            _split_line("byte layer (fleet)", rec["split"])
+        out["passes"].append(rec)
+    check(len(results) == 1 and next(iter(results))[0] > 0,
+          f"the byte layer's passes decoded differently: {results}")
+    warm = {t: [x for p in out["passes"] if p["timed"] == t
+                for x in p["consume_ms"][1:]] for t in (False, True)}
+    calls = sum(v["calls_per_round"] for p in out["passes"] if p["timed"]
+                for v in p["split"]["parts"].values()) / BYTE_LAYER_PASSES \
+        .count(True)
+    out["consume_ms_warm"] = {"without_timers": warm[False],
+                              "with_timers": warm[True]}
+    out["wrapper_cost_ms_per_round"] = calls * out["call_cost_us"] / 1e3
+    out["access_units"] = next(iter(results))[0]
+    return out
+
+
+def _radio_cli_split(bl, spans, frames):
+    """The byte layer's parts inside radio/msc_channels of a radio_cli run
+    (bl, its _ByteLayerTimers; spans, the run's stage table): calls and ms
+    a frame of each part, the span a frame, the rest as "other"."""
+    calls, per_thread = bl.calls(), bl.thread_ms()
+    parts = {}
+    for part in BYTE_LAYER_PARTS:
+        if calls.get(part):
+            ms = sum(row.get(part, 0.0) for row in per_thread.values())
+            parts[part] = {"calls_per_frame": calls[part] / frames,
+                           "ms_per_frame": ms / frames}
+    span = spans["radio/msc_channels"]["total_us"] / 1e3 / frames
+    inside = sum(v["ms_per_frame"] for v in parts.values())
+    check(inside <= 1.05 * span, f"radio_cli: the parts take {inside:.4f} "
+          f"ms of a {span:.4f} ms radio/msc_channels a frame")
+    return {"frames": frames, "msc_channels_ms_per_frame": span,
+            "parts": parts, "other_ms_per_frame": span - inside,
+            "shares": {p: v["ms_per_frame"] / span for p, v in parts.items()}}
+
+
+def measure_serving(dev, paths, sents):
+    """fleet_serve on the fleet path's 16 streams for MEASURE_ROUNDS rounds
+    in each of SERVING_CONFIGS (the consume workers' pool, the feeder,
+    both), with the part timers on: every access unit byte-exact, the
+    totals equal across configurations; each one's round walls, the
+    serving loop's pace between rounds, the real-time ensembles, the byte
+    layer's split (thread time under the pool) and the feeder's
+    FeederStats."""
+    out, totals = {}, {}
+    air = FLEET_STREAMS * FLEET_K * 0.096
+    for name, flags in SERVING_CONFIGS.items():
+        with _ByteLayerTimers() as bl, _FeederWatch() as feeds:
+            _, lines, ft = fleet_path(
+                dev, paths, sents, options=flags + (
+                    "--max-rounds", str(MEASURE_ROUNDS)),
+                nb_frames=MEASURE_ROUNDS * FLEET_K + 1)
+        totals[name] = lines
+        pace = ft.cadence_s()[1:]
+        out[name] = {
+            "flags": list(flags), "round_wall_s": ft.round_wall_s,
+            "cadence_s": pace,
+            "realtime_ensembles": air * len(pace) / sum(pace),
+            "consume_s": ft.consume_s, "byte_layer": _round_stats(bl.split()),
+            "feeder": feeds.stats()}
+        _split_line(f"byte layer (fleet_serve {name})",
+                    out[name]["byte_layer"])
+        log(f"serving {name}: round walls s "
+            + json.dumps([round(x, 4) for x in ft.round_wall_s])
+            + f", real-time ensembles {out[name]['realtime_ensembles']:.3f}, "
+            f"feeder {out[name]['feeder']}")
+    check(all(v == totals["default"] for v in totals.values()),
+          "the serving configurations decoded differently: "
+          + json.dumps({k: v[-1] for k, v in totals.items()}))
+    return out
+
+
+def batched_profile(dev, depth, nb_frames):
+    """chip_smoke.py --batched-profile DEPTH: the older batched path on the
+    BATCHED_STREAMS captures of nb_frames frames (as measure makes them),
+    MultiStreamDemodulator into ReceiverFleet(pipeline_depth=DEPTH), in a
+    process of its own: the first BATCHED_PROFILE_WARM steps capture the
+    programs, the rest run under torch.profiler (a graph captured before a
+    profiler session replays slowly after it, so no later phase may run
+    here). Prints one line "batched profile: {json}" (the step() and
+    process_frames walls, device time, busy share, kernel rows) and writes
+    the access units to WORK/batched_depth<DEPTH>.pkl."""
+    import contextlib
+    import pickle
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dab_radio_tpu_torch.kernels import viterbi_acs as K
+    from dab_radio_tpu_torch.models.demodulator import OFDMDemodulator
+    from dab_radio_tpu_torch.models.fleet import ReceiverFleet
+    from dab_radio_tpu_torch.models.multistream import MultiStreamDemodulator
+    N = BATCHED_STREAMS
+    paths = [os.path.join(WORK, f"capture{k}_{nb_frames}.u8")
+             for k in range(N)]
+    ms = MultiStreamDemodulator(OFDMDemodulator(1, device=dev), N,
+                                frames_per_step=BATCHED_K, ingest="u8",
+                                fetch_bits=False, device=dev)
+    fleet = ReceiverFleet(N, 1, pipeline_depth=depth, device=dev)
+    session, began = contextlib.ExitStack(), {}
+
+    def on_step(i):
+        if i == BATCHED_PROFILE_WARM:
+            torch.cuda.synchronize()
+            # the window starts once the profiler is up: its first start in
+            # a process takes seconds
+            began["tp"] = session.enter_context(profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+            began["t"] = time.perf_counter()
+            began["frames"] = fleet.total_frames
+    K.reset_launches()
+    with session:
+        got, step_s, round_s, per_round = _drive_batched(ms, fleet, paths,
+                                                         on_step)
+        check("tp" in began, f"the batched path took under "
+              f"{BATCHED_PROFILE_WARM} steps")
+        wall = time.perf_counter() - began["t"]
+    dev_ms, busy, kernels = _device_profile(began["tp"], wall)
+    with open(os.path.join(WORK, f"batched_depth{depth}.pkl"), "wb") as f:
+        pickle.dump(got, f)
+    print("batched profile: " + json.dumps({
+        "pipeline_depth": depth, "step_s": step_s,
+        "process_frames_s": round_s, "profiled_from_step":
+        BATCHED_PROFILE_WARM, "profiled_wall_s": wall,
+        "profiled_frames": fleet.total_frames - began["frames"],
+        "frames": fleet.total_frames, "device_time_ms": dev_ms,
+        "device_busy_share": busy, "kernels": kernels,
+        "launches": dict(K.LAUNCHES), "launches_by_round": per_round,
+        "desync": int(ms.carry.total_desync.sum())}), flush=True)
+    return 0
+
+
+def measure_batched(paths, sents, nb_frames):
+    """The older batched path at each of BATCHED_PROFILE_DEPTHS, each in a
+    child process (batched_profile): every access unit byte-exact against
+    what was sent, no desync, and the depths' access units alike: a
+    deferred fleet learns a channel `depth` rounds later, so its run of each
+    subchannel may start later, and from there on it is the synchronous
+    run's, to the same last access unit."""
+    import pickle
+    out, got = {}, {}
+    for depth in BATCHED_PROFILE_DEPTHS:
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--batched-profile",
+             str(depth), "--frames", str(nb_frames)], capture_output=True,
+            text=True, timeout=BATCHED_PROFILE_TIMEOUT_S, cwd=ROOT)
+        lines = [ln for ln in res.stdout.splitlines()
+                 if ln.startswith("batched profile: ")]
+        check(res.returncode == 0 and len(lines) == 1,
+              f"--batched-profile {depth}: rc {res.returncode}, "
+              f"{res.stderr[-3000:]}")
+        rec = json.loads(lines[0][len("batched profile: "):])
+        check(rec["desync"] == 0, f"batched depth {depth}: a stream lost "
+              "sync")
+        with open(os.path.join(WORK, f"batched_depth{depth}.pkl"),
+                  "rb") as f:
+            got[depth] = pickle.load(f)
+        rec["access_units"] = _check_batched_aus(
+            got[depth], sents, range(BATCHED_STREAMS))
+        out[f"depth {depth}"] = rec
+        warm = rec["step_s"][BATCHED_PROFILE_WARM:-1]
+        log(f"batched depth {depth}: {rec['access_units']} AUs byte-exact; "
+            f"under the profiler {rec['profiled_frames']} frames in "
+            f"{rec['profiled_wall_s']:.3f} s, step() "
+            f"{1e3 * min(warm):.2f} to {1e3 * max(warm):.2f} ms, "
+            f"process_frames {1e3 * min(rec['process_frames_s']):.2f} to "
+            f"{1e3 * max(rec['process_frames_s']):.2f} ms; device "
+            f"{rec['device_time_ms']:.3f} ms, busy "
+            f"{100 * rec['device_busy_share']:.2f}%")
+    first, *rest = BATCHED_PROFILE_DEPTHS
+    same_start = True
+    for depth in rest:
+        check(got[depth].keys() == got[first].keys(),
+              f"batched depths {first} and {depth}: other subchannels")
+        for key, aus in got[depth].items():
+            ref = got[first][key]
+            at = len(ref) - len(aus)
+            check(at >= 0 and ref[at:] == aus, f"batched depth {depth}, "
+                  f"{key}: not the depth-{first} run's access units from "
+                  "its start on")
+            same_start &= at == 0
+    out["same_access_units_from_the_first"] = same_start
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--measure", action="store_true",
@@ -2952,12 +3517,17 @@ def main():
     ap.add_argument("--mesh-init", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--graph-profile", action="store_true",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--batched-profile", type=int, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.mesh_rank is not None:
         return mesh_rank(args.mesh_rank, args.mesh_init, args.mesh_backend)
     import torch
     if args.graph_profile:
         return graph_profile(torch.device("cuda", 0))
+    if args.batched_profile is not None:
+        return batched_profile(torch.device("cuda", 0), args.batched_profile,
+                               args.frames)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -2990,9 +3560,9 @@ def main():
                 "long": phase("long", long_path, dev),
                 "long_tiled": phase("long_tiled", long_path, dev, "tiled"),
                 "graph": phase("graph", graph_path, dev, paths),
-                "fleet": phase("fleet", fleet_path, dev, paths, sents),
-                "fleet_tiled": phase("fleet_tiled", fleet_path, dev, paths,
-                                     sents, "tiled"),
+                "fleet": phase("fleet", fleet_phase, dev, paths, sents),
+                "fleet_tiled": phase("fleet_tiled", lambda: fleet_path(
+                    dev, paths, sents, "tiled")[0]),
                 "discovery": phase("discovery", discovery_path, dev, paths,
                                    sents),
                 "variants": phase("variants", variants_path, dev, paths),
