@@ -1,0 +1,248 @@
+"""The comparison that decides `correct`: what the timed path produced,
+against what was sent and against the plain reference.
+
+Numbers compared, each with its limit (a cell's "check" block):
+- au_errors: access units due in the window that never came, plus any
+  access unit that came with other bytes, at another index, twice, or out
+  of place. Exact: limit 0. An access unit is due when the last CIF of its
+  superframe's last logical frame has reached the program (15 CIFs of time
+  interleaving after that frame's own); it may come late (with the deferred
+  round, or the flush after the window), not wrong.
+- db_errors: fields of the ensemble database decoded from the FIBs (the
+  ensemble's id and label; each service's id, label and component; each
+  subchannel's address, size and protection) that differ from what the
+  FIGs sent, and entries that were not sent. Exact: limit 0.
+- lost_sync: frames that lost sync (the demodulator's own count), rounds of
+  a stream whose FIBs did not all pass their CRC, frames of the stream the
+  tuner never yielded, and fleet streams whose read grid (the frame start
+  the program aligned them to) is not the frame start that the reference
+  finds in the same capture. Exact: limit 0.
+- freq_gap_bins: the widest gap, over the streams, between the program's
+  carrier offsets (freq_coarse, freq_fine) after its last frame and the
+  reference's after the same frame, in carrier spacings.
+- l1_gap: the widest relative gap of the running signal level.
+- softbit_gap (tuner): the widest gap of a soft bit, over the sampled
+  frames of the window, against the reference's soft bits of that frame.
+The reference follows each stream over its last `reference_frames` frames
+from a cold start (the carry forgets its start by 0.95 a frame), finding
+the frames' timing, carrier offset and level itself. A fleet's streams are
+read on the grid the program aligned them to, as the serving round reads
+them; the reference finds each capture's first frame itself, and a grid
+that is not on it counts as lost sync.
+
+`correct` is verdict(): every number at or under its limit.
+"""
+
+import numpy as np
+import torch
+
+from traffic import standard as S
+from traffic import transmit as T
+
+from .demod import Reference
+
+INTERLEAVE_CIFS = S.DEPTH - 1
+# the signal level a serving round's carry starts from (parallel/mesh.py
+# documents the round's initial state)
+FLEET_L1_START = 0.5
+
+
+def verdict(numbers: dict, limits: dict) -> bool:
+    """True when every number compared has a limit and is at or under it."""
+    return all(limits.get(k) is not None and v <= limits[k]
+               for k, v in numbers.items())
+
+
+def _sent_index(traffic):
+    """[capture][service] {au bytes: (superframe, index)}."""
+    return [[{au: (k, i) for k, sf in enumerate(aus)
+              for i, au in enumerate(sf)} for aus in cap]
+            for cap in traffic.sent]
+
+
+def access_units(traffic, out: dict, unit_cifs, window: tuple) -> dict:
+    """unit_cifs(stream, unit) -> (first period CIF, end) of the unit (a
+    round or a frame) whose processing delivered an AU; window = (first,
+    last) unit whose outputs came back inside the window."""
+    nb_cifs = S.dab_params(traffic.ensemble.mode).nb_cifs
+    sfp = traffic.superframes
+    period_cifs = traffic.period_frames * nb_cifs
+    index = _sent_index(traffic)
+    delivered, wrong = set(), 0
+    for b, s, i, au, unit in out["aus"]:
+        v = out["capture_of"][b]
+        hit = index[v][s].get(au) if s is not None else None
+        if hit is None or hit[1] != i:
+            wrong += 1
+            continue
+        lo, hi = unit_cifs(b, unit)
+        mid = (lo + hi) / 2
+        k = hit[0]
+        K = k + sfp * int(round((mid - _due(0) - T.SUPERFRAME_FRAMES * k)
+                                / period_cifs))
+        key = (b, s, K, i)
+        if key in delivered or _due(K) >= hi:        # twice, or too soon
+            wrong += 1
+            continue
+        delivered.add(key)
+    due = set()
+    for b in range(len(out["capture_of"])):
+        lo, _ = unit_cifs(b, window[0])
+        _, hi = unit_cifs(b, window[1])
+        for K in range(-(-(lo - _due(0)) // T.SUPERFRAME_FRAMES),
+                       (hi - 1 - _due(0)) // T.SUPERFRAME_FRAMES + 1):
+            for s, svc in enumerate(traffic.ensemble.services):
+                due |= {(b, s, K, i) for i in range(svc.num_aus)}
+    missing = len(due - delivered)
+    return {"wrong": wrong, "missing": missing, "attempted": len(due)}
+
+
+def _due(K: int) -> int:
+    """The period CIF at which superframe K's last logical frame is whole."""
+    return T.SUPERFRAME_FRAMES * K + T.SUPERFRAME_FRAMES - 1 + INTERLEAVE_CIFS
+
+
+def database(traffic, dbs) -> int:
+    ens = traffic.ensemble
+    errors = 0
+    for db in dbs:
+        errors += db.ensemble.id != ens.ensemble_id
+        errors += db.ensemble.label.strip() != ens.label.strip()
+        errors += len(db.services) != len(ens.services)
+        errors += len(db.subchannels) != len(ens.services)
+        for svc in ens.services:
+            got = db.services.get(svc.service_id)
+            errors += got is None or got.label.strip() != svc.label.strip()
+            sub = db.subchannels.get(svc.subchannel_id)
+            want = (svc.sub.start_address, svc.sub.length, svc.sub.is_uep)
+            errors += sub is None or (sub.start_address, sub.length,
+                                      bool(sub.is_uep)) != want
+            if sub is not None and not svc.sub.is_uep:
+                errors += (sub.eep_type, sub.eep_prot_level) != (
+                    svc.sub.eep_type, svc.sub.eep_prot_level)
+            comp = db.component_by_subchannel(svc.subchannel_id)
+            errors += comp is None or comp.service_id != svc.service_id \
+                or comp.audio_service_type != (63 if svc.kind == "dab+" else 0)
+    return int(errors)
+
+
+def _captures(traffic, device):
+    return [torch.complex(*(torch.as_tensor(c[j::2], device=device)
+                            .to(torch.float64).sub(127.5).div(127.5)
+                            for j in (0, 1)))
+            for c in traffic.captures]
+
+
+def reference_numbers(traffic, out: dict, cell_check: dict, device,
+                      precision: str = "f64") -> dict:
+    """Run the reference (or the control, precision "bf16") over the tracks
+    that end where the program's streams ended, and at the sampled frames.
+    Returns {"carry": the carry after each stream's last frame, "bits":
+    {k: soft bits of the k-th sampled frame}, "lost": frames out of sync
+    a track, "null0": the tuner's first NULL in the capture, "align": the
+    fleet's captures' first frame start and whether it synced}."""
+    ref = Reference(traffic.ensemble.mode, device, precision)
+    caps = _captures(traffic, device)
+    fs = traffic.frame_samples
+    W = cell_check["reference_frames"]
+    tracks, bits_at, null0, align = [], [], None, None
+    if out["kind"] == "fleet":
+        align = [ref.align(c) for c in caps]
+        F = out["frames_in"]
+        n = min(W, F)
+        for v, start in enumerate(out["start_bytes"]):
+            # from the stream's start, the level starts where the serving
+            # round states it does
+            tracks.append({"capture": v, "frames": n, "mode": "grid",
+                           "start": start // 2 + (F - n) * fs,
+                           "l1": FLEET_L1_START if n == F else 0.0})
+    else:
+        s0 = out["start_bytes"][0] // 2
+        null0 = ref.acquire(caps[0], s0)
+        # the streaming demodulator starts its level at the level of the
+        # block in which it found the first NULL: the stream's first window
+        head = caps[0][s0:s0 + ref.window_len]
+        l1_head = float((head.real.abs() + head.imag.abs()).mean())
+        ends = [j for j, _ in out["sampled"]] + [out["frames"] - 1]
+        for k, j in enumerate(ends):
+            n = min(W, j + 1)
+            tracks.append({"capture": 0, "frames": n, "mode": "tracked",
+                           "start": null0 + (j + 1 - n) * fs,
+                           "l1": l1_head if n == j + 1 else 0.0})
+            if k < len(out["sampled"]):
+                bits_at.append((k, n - 1))
+    final, bits, lost = ref.run(caps, tracks, bits_at)
+    carry = [final[v] for v in out["capture_of"]] \
+        if out["kind"] == "fleet" else [final[-1]]
+    return {"carry": carry, "bits": {k: b for (k, _), b in bits.items()},
+            "lost": lost, "null0": null0, "align": align}
+
+
+def _frame_gap(start: int, ref_align: tuple, fs: int):
+    """Samples between a read grid that starts at sample `start` and the
+    nearest frame start that the reference found; None where the
+    reference's frame did not sync."""
+    at, synced = ref_align
+    d = (start - at) % fs
+    return min(d, fs - d) if synced else None
+
+
+def carry_gaps(traffic, prog: dict, ref_carry: list) -> dict:
+    """(freq_gap_bins, l1_gap) of the program's carry (one row a stream)
+    against the reference's carry of each stream."""
+    nfft = S.OFDM_MODES[traffic.ensemble.mode].nb_fft
+    freq, l1 = 0.0, 0.0
+    for b, r in enumerate(ref_carry):
+        for f in ("freq_coarse", "freq_fine"):
+            freq = max(freq, abs(float(prog[f][b]) - r[f]) * nfft)
+        l1 = max(l1, abs(float(prog["signal_l1_avg"][b]) - r["signal_l1_avg"])
+                 / abs(r["signal_l1_avg"]))
+    return {"freq_gap_bins": freq, "l1_gap": l1}
+
+
+def compare(traffic, out: dict, window: tuple, cell_check: dict,
+            device) -> dict:
+    """-> {"numbers": {name: value}, "attempted", "failed", "align_gaps":
+    the fleet's read grids' distance in samples from the reference's
+    frames, a capture each (None for a tuner)}."""
+    ref = reference_numbers(traffic, out, cell_check, device)
+    nb_cifs = S.dab_params(traffic.ensemble.mode).nb_cifs
+    fs = traffic.frame_samples
+    gaps = None                 # the fleet's read grids against the frames
+    if out["kind"] == "fleet":
+        K = out["frames_per_round"]
+        fr0 = [int(round(s / 2 / fs)) for s in out["start_bytes"]]
+
+        def unit_cifs(b, r):
+            f = fr0[out["capture_of"][b]] + r * K
+            return nb_cifs * f, nb_cifs * (f + K)
+        lost = len(out["fib_short"]) + int(out["carry"]["total_desync"].sum())
+        gaps = [_frame_gap(s // 2, a, fs)
+                for s, a in zip(out["start_bytes"], ref["align"])]
+        lost += sum(gaps[v] is None or gaps[v] > 0 for v in out["capture_of"])
+    else:
+        ja = int(round(ref["null0"] / fs))
+
+        def unit_cifs(b, j):
+            return nb_cifs * (ja + j), nb_cifs * (ja + j + 1)
+        # frames whose whole window was handed in after the first NULL
+        # (acquisition starts a frame up to 2 blocks of 100 samples early)
+        window_len = Reference.window_len_of(traffic.ensemble.mode)
+        lead = ref["null0"] - out["start_bytes"][0] // 2
+        expected = (out["bytes_in"] // 2 - lead + 200 - window_len) // fs + 1
+        lost = int(out["carry"]["total_desync"].sum()) + max(
+            0, expected - out["frames"] - 1)
+    aus = access_units(traffic, out, unit_cifs, window)
+    numbers = {"au_errors": aus["wrong"] + aus["missing"],
+               "db_errors": database(traffic, out["dbs"]),
+               "lost_sync": lost}
+    numbers.update(carry_gaps(traffic, out["carry"], ref["carry"]))
+    if out["kind"] == "tuner":
+        gap = 0
+        for k, (_, bits) in enumerate(out["sampled"]):
+            d = np.abs(bits.astype(np.int32) - ref["bits"][k].astype(np.int32))
+            gap = max(gap, int(d.max()))
+        numbers["softbit_gap"] = gap
+    return {"numbers": numbers, "attempted": aus["attempted"],
+            "failed": aus["missing"] + aus["wrong"],
+            "align_gaps": gaps}

@@ -1,0 +1,69 @@
+"""The benchmark's own tests (not tier-1): run from the root of the
+checkout with `python -m pytest benchmark/tests`. Tests that need a CUDA
+card carry the repository's `cuda` marker and skip without one; whether a
+card is there is decided inside a fixture."""
+
+import json
+import os
+import shutil
+import sys
+
+import pytest
+
+BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(BENCH)
+sys.path.insert(0, BENCH)
+sys.path.insert(1, ROOT)
+
+FLEET = "dabplus18-fleet16.clean15db"
+TUNER = "dabplus18-tuner1.clean15db"
+
+
+@pytest.fixture
+def cuda_card():
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the benchmark's cells run on one)")
+    return torch.device("cuda")
+
+
+def tiny_copy(dst: str, services: int = 2, streams: int = 2,
+              period: int = 10, reference_frames: int = 40) -> str:
+    """A copy of BENCHMARK.json and benchmark/ under dst whose cells serve
+    a small multiplex (a CPU run takes seconds); returns dst/benchmark."""
+    bench = os.path.join(dst, "benchmark")
+    shutil.copytree(BENCH, bench, ignore=shutil.ignore_patterns(
+        "__pycache__", "tests"))
+    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), dst)
+    for name in os.listdir(os.path.join(bench, "configs")):
+        p = os.path.join(bench, "configs", name)
+        c = json.load(open(p))
+        c["multiplex"]["services"][0]["count"] = services
+        if "streams" in c["serving"]:
+            c["serving"]["streams"] = streams
+            c["serving"]["frames_per_round"] = 2
+        json.dump(c, open(p, "w"))
+    for name in os.listdir(os.path.join(bench, "workloads")):
+        p = os.path.join(bench, "workloads", name)
+        c = json.load(open(p))
+        c["traffic"]["period_frames"] = period
+        c["traffic"]["captures"] = c["traffic"]["captures"][:streams]
+        c["check"]["reference_frames"] = reference_frames
+        c["warmup"] = {"rounds": 6} if "rounds" in c["warmup"] \
+            else {"frames": 12}
+        json.dump(c, open(p, "w"))
+    return bench
+
+
+@pytest.fixture(scope="module")
+def tiny(tmp_path_factory):
+    dst = str(tmp_path_factory.mktemp("tiny"))
+    return dst, tiny_copy(dst)
+
+
+def run_tiny(tiny, cell, seconds=2.0, seed=123456789012, trace=False,
+             keep=None):
+    import run as bench_run
+    root, bench = tiny
+    return bench_run.run_cell(cell, seed, seconds, trace, "cpu",
+                              bench_dir=bench, root=root, keep=keep)
