@@ -21,6 +21,10 @@ with constant memory: one round + tail buffered.
 
 Prints one JSON summary line per stream plus a fleet total. With --port,
 /state.json serves the live status and /plot.json one stream's OFDM plots.
+--profile-trace PATH turns the stage profiler on (``utils/profiler.py``):
+at the end its table goes to stderr and its spans to PATH as a Chrome
+trace, and /state.json adds the table and the programs' capture and replay
+counts (``utils/graphs.py:GRAPH_STATS``).
 SIGINT stops serving at the next round boundary and ends as at the end of
 the input (stream lines, totals, --snapshot-out; exit code 0); a second
 SIGINT ends the process at once.
@@ -295,8 +299,17 @@ def _totals(fleet, args, pcm_out):
 
 
 def _status_blob(fleet, args, pcm_out) -> bytes:
-    return json.dumps({"streams": _stream_rows(fleet),
-                       "totals": _totals(fleet, args, pcm_out)}).encode()
+    state = {"streams": _stream_rows(fleet),
+             "totals": _totals(fleet, args, pcm_out)}
+    if args.profile_trace:
+        from ..utils.graphs import GRAPH_STATS
+        from ..utils.profiler import get_profiler
+        # per-stage totals in microseconds, as webmon's /state.json has them
+        state["profiler"] = {
+            k: {m: round(v, 1) for m, v in row.items()}
+            for k, row in sorted(get_profiler().table().items())}
+        state["graphs"] = dict(GRAPH_STATS)
+    return json.dumps(state).encode()
 
 
 def _build_fleet(args, device, N, discover):
@@ -683,6 +696,10 @@ def main(argv=None):
                     help="resume from a --snapshot-out checkpoint "
                          "(overrides --subchannels/--discover; resumed "
                          "decode continues byte-identically)")
+    ap.add_argument("--profile-trace", default=None,
+                    help="enable the stage profiler, write a Chrome/"
+                         "Perfetto trace JSON here and its table to stderr "
+                         "on exit; with --port, /state.json adds the table")
     add_backend_flag(ap)
     args = ap.parse_args(argv)
     device = apply_backend(args)
@@ -691,6 +708,24 @@ def main(argv=None):
         print("-i - (live stdin) supports u8 only; pipe through "
               "an IQ converter for other formats", file=sys.stderr)
         return 2
+    if not args.profile_trace:
+        return _serve(ap, args, device)
+    from ..utils.profiler import get_profiler
+    prof = get_profiler()
+    was = prof.enabled
+    prof.enabled = True
+    try:
+        rc = _serve(ap, args, device)
+        prof.dump_chrome_trace(args.profile_trace)
+        print(prof.report(), file=sys.stderr)
+        print(f"# profiler: {len(prof.table())} stages -> "
+              f"{args.profile_trace}", file=sys.stderr)
+    finally:
+        prof.enabled = was
+    return rc
+
+
+def _serve(ap, args, device):
     with _StopOnSigint() as stop:
         if args.inputs == ["-"]:
             return _serve_stream(args, device, stop)

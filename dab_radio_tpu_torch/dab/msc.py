@@ -27,6 +27,7 @@ from ..params.puncture import build_puncture_mask
 from ..ops import viterbi as vit
 from ..utils.backend import to_device
 from ..utils.graphs import CapturedProgram, as_argument
+from ..utils.profiler import profile_scope
 from ..ops.deinterleave import (make_gather_index, deinterleave_push_block,
                                 DEPTH, CIF_OFFSETS)
 
@@ -210,7 +211,9 @@ def finalize_frame_group(handle) -> list:
     """Host half: fetch decoded bits, descramble, emit per-decoder payload
     lists matching MSCDecoder.decode_frame."""
     decoders, bits, pushed0, nb_cifs = handle
-    bits = bits.cpu().numpy().astype(np.uint8)
+    with profile_scope("msc/fetch"):
+        bits = bits.cpu().numpy()
+    bits = bits.astype(np.uint8)
     results = []
     for i, d in enumerate(decoders):
         out = []

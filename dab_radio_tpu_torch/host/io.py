@@ -10,6 +10,7 @@ from typing import BinaryIO, Optional, Tuple
 
 import numpy as np
 
+from ..utils.profiler import profile_scope
 from .native import iq_convert
 
 
@@ -113,8 +114,9 @@ class IQReader:
     def convert(self, raw: bytes) -> np.ndarray:
         """Raw bytes -> complex64, tracking saturation — the one
         conversion entry point for callers that manage their own reads."""
-        self._track_saturation(raw)
-        return iq_convert(raw, self.fmt)
+        with profile_scope("io/convert"):
+            self._track_saturation(raw)
+            return iq_convert(raw, self.fmt)
 
     def read_block(self, nb_bytes: int) -> Optional[np.ndarray]:
         raw = self.f.read(nb_bytes)

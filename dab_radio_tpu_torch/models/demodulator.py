@@ -377,6 +377,10 @@ class StreamingDemodulator:
     def process(self, iq: np.ndarray):
         """Consume an arbitrary-size chunk of complex64 IQ; returns the
         soft-bit frames (np.int8 arrays) that locked."""
+        with profile_scope("demod/process"):
+            return self._process(iq)
+
+    def _process(self, iq: np.ndarray):
         d = self.demod
         p = d.params
         dev = d.device
@@ -421,6 +425,7 @@ class StreamingDemodulator:
                     with profile_scope("demod/frame_scan"):
                         raw = self._buf.view(ptr, ptr + scan_len)
                         carry, consumed, outs = d.frame_scan(K, self.carry, raw)
+                    with profile_scope("demod/fetch"):
                         valid = outs["valid"].cpu().numpy()
                         bits = outs["bits"].cpu().numpy()
                     self.carry = carry
@@ -439,10 +444,12 @@ class StreamingDemodulator:
                     raw_window = self._buf.view(ptr, ptr + d.window_len)
                     self.carry, out = d.frame_step(self.carry, raw_window)
                 self.last_window = raw_window.copy()
-                if bool(out["sync_ok"]):
-                    frames.append(out["bits"].cpu().numpy())
-                    ptr += int(out["offset"]) + d.frame_advance
-                else:
+                with profile_scope("demod/fetch"):
+                    synced = bool(out["sync_ok"])
+                    if synced:
+                        frames.append(out["bits"].cpu().numpy())
+                        ptr += int(out["offset"]) + d.frame_advance
+                if not synced:
                     # desync: re-acquire, advancing past the failed region
                     self.state = self.ACQUIRE
                     ptr += p.nb_null_period

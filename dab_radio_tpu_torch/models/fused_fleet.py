@@ -52,6 +52,7 @@ from ..ops.crc import crc16_check_batch
 from ..params import SubchannelConfig, get_dab_params, get_ofdm_params
 from ..utils.backend import to_device
 from ..utils.graphs import CapturedProgram
+from ..utils.profiler import profile_scope
 from .demodulator import DemodCarry, OFDMDemodulator
 from .receiver import DabReceiver
 
@@ -97,9 +98,10 @@ class _Fetch:
         self.event.record()
 
     def arrays(self):
-        if self.event is not None:
-            self.event.synchronize()
-        return [t.numpy() for t in self.host]
+        with profile_scope("fleet/fetch_wait"):
+            if self.event is not None:
+                self.event.synchronize()
+            return [t.numpy() for t in self.host]
 
 
 class FusedFleet:
@@ -639,12 +641,14 @@ class FusedFleet:
         return fibs, ok
 
     def _consume(self, fib_bytes: np.ndarray, msc_bytes: np.ndarray):
-        fibs, ok = self._check_fibs(fib_bytes)
-        if self._pool is None:
-            for b, events in enumerate(
-                    self._consume_batched(fibs, ok, msc_bytes)):
-                self._fire(b, events)
-        else:
+        with profile_scope("fleet/consume"):
+            fibs, ok = self._check_fibs(fib_bytes)
+            if self._pool is None:
+                per_stream = self._consume_batched(fibs, ok, msc_bytes)
+                with profile_scope("fleet/fire"):
+                    for b, events in enumerate(per_stream):
+                        self._fire(b, events)
+                return
             # streams are independent (disjoint receivers / processors /
             # decoders), so the heavy byte work runs in the pool; events
             # fire here, serialized in stream order, so observers keep
@@ -654,13 +658,15 @@ class FusedFleet:
             # every job runs to completion (its stream's decode state has
             # advanced); fire all successful streams' events in order so
             # observers never lose a round another stream's failure
-            # already consumed, THEN surface the first error
+            # already consumed, THEN surface the first error; the span
+            # holds the wait for the workers too
             first_err = None
-            for b, fut in enumerate(futs):
-                try:
-                    self._fire(b, fut.result())
-                except Exception as e:            # noqa: BLE001
-                    first_err = first_err or e
+            with profile_scope("fleet/fire"):
+                for b, fut in enumerate(futs):
+                    try:
+                        self._fire(b, fut.result())
+                    except Exception as e:            # noqa: BLE001
+                        first_err = first_err or e
             if first_err is not None:
                 raise first_err
 
@@ -719,26 +725,30 @@ class FusedFleet:
         rs = dab_plus_rs()
         for c in range(C):
             done = []                     # (b, s, (n_cols, 120) codewords)
-            for b, s in audio:
-                nb = self._nbytes[b][s]
-                sf = self._sfp[b][s].push_frame(
-                    msc_bytes[b, s, c][:nb].tobytes())
-                if sf is not None:
-                    arr = np.frombuffer(sf, np.uint8).reshape(
-                        RS_MESSAGE, len(sf) // RS_MESSAGE)
-                    done.append((b, s, arr.T))
+            with profile_scope("fleet/push_frames"):
+                for b, s in audio:
+                    nb = self._nbytes[b][s]
+                    sf = self._sfp[b][s].push_frame(
+                        msc_bytes[b, s, c][:nb].tobytes())
+                    if sf is not None:
+                        arr = np.frombuffer(sf, np.uint8).reshape(
+                            RS_MESSAGE, len(sf) // RS_MESSAGE)
+                        done.append((b, s, arr.T))
             if not done:
                 continue
-            cw = np.concatenate([d[2] for d in done], axis=0)
-            corrected, nerr = rs.decode(cw)
-            pos = 0
-            for b, s, arr in done:
-                n_cols = arr.shape[0]
-                res = self._sfp[b][s].finish(
-                    corrected[pos:pos + n_cols], nerr[pos:pos + n_cols])
-                pos += n_cols
-                if res is not None:
-                    ev_bs[(b, s)].append(self._superframe_event(b, s, res))
+            with profile_scope("fleet/rs_decode"):
+                cw = np.concatenate([d[2] for d in done], axis=0)
+                corrected, nerr = rs.decode(cw)
+            with profile_scope("fleet/finish"):
+                pos = 0
+                for b, s, arr in done:
+                    n_cols = arr.shape[0]
+                    res = self._sfp[b][s].finish(
+                        corrected[pos:pos + n_cols], nerr[pos:pos + n_cols])
+                    pos += n_cols
+                    if res is not None:
+                        ev_bs[(b, s)].append(
+                            self._superframe_event(b, s, res))
         for b, s in ev_bs:
             if self._kinds[b][s] != "audio":
                 ev_bs[(b, s)] = self._other_kinds(b, s, msc_bytes)

@@ -391,31 +391,37 @@ class DabReceiver:
 
     def process_frame(self, frame_soft_bits: np.ndarray):
         """One OFDM frame of soft bits (nb_frame_bits int8)."""
-        fic, cifs = self.split_frame(frame_soft_bits)
+        with profile_scope("radio/frame"):
+            fic, cifs = self.split_frame(frame_soft_bits)
+            with profile_scope("radio/fic_decode"):
+                fibs, _ = self.fic.decode_fic(fic)
+            self.ingest_fibs(fibs)
+            with profile_scope("radio/msc_channels"):
+                self._msc_channels(cifs)
+            self.total_frames += 1
 
-        with profile_scope("radio/fic_decode"):
-            fibs, _ = self.fic.decode_fic(fic)
-        self.ingest_fibs(fibs)
-        with profile_scope("radio/msc_channels"):
-            # group same-protection subchannels into one batched decode, by
-            # a group kept from frame to frame while its members stay
-            groups: Dict[object, list] = {}
-            for ch in list(self.channels.values()):
-                groups.setdefault(group_key(ch.msc.cfg), []).append(ch)
-            for key, chans in groups.items():
-                if len(chans) == 1:
-                    chans[0].process_frame_cifs(cifs)
-                    continue
-                group = persistent_group(self._groups, key,
-                                         [c.msc for c in chans],
-                                         self.cuda_graph)
-                results = finalize_frame_group(
-                    group.dispatch([cifs] * len(chans)))
-                for ch, payloads in zip(chans, results):
-                    for p in payloads:
-                        if p is not None:
-                            ch._handle_payload(p)
-        self.total_frames += 1
+    def _msc_channels(self, cifs):
+        """Every channel's MSC decode of one frame, then the byte layer
+        of all of them in channel order (span radio/superframes)."""
+        # group same-protection subchannels into one batched decode, by a
+        # group kept from frame to frame while its members stay
+        groups: Dict[object, list] = {}
+        for ch in list(self.channels.values()):
+            groups.setdefault(group_key(ch.msc.cfg), []).append(ch)
+        decoded = []                  # (channel, its payloads of the frame)
+        for key, chans in groups.items():
+            if len(chans) == 1:
+                decoded.append((chans[0], chans[0].msc.decode_frame(cifs)))
+                continue
+            group = persistent_group(self._groups, key,
+                                     [c.msc for c in chans], self.cuda_graph)
+            decoded += zip(chans, finalize_frame_group(
+                group.dispatch([cifs] * len(chans))))
+        with profile_scope("radio/superframes"):
+            for ch, payloads in decoded:
+                for p in payloads:
+                    if p is not None:
+                        ch._handle_payload(p)
 
     # ---- dynamic channel instantiation ----
 

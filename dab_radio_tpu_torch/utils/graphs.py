@@ -47,6 +47,13 @@ The contract, for ``program = CapturedProgram(fn, device, state=...)``:
   with ``register_counter(counter, keys)`` has only those keys added on a
   replay: ``parallel/mesh.py:COLLECTIVES`` counts its collectives' calls
   that way, while its host seconds count eager calls only.
+* ``GRAPH_STATS`` counts the programs' own work, always: ``captures``, the
+  first calls that captured; ``capture_s``, their host seconds (the warm-up
+  run and the capture); ``replays``. It is no launch counter: a capture
+  leaves it as it is. A capture while a server runs means that a program
+  was built anew.
+* A call that stages host arguments does so inside the span
+  ``graph/stage`` (``utils/profiler.py``).
 
 ``cuda_graph`` chooses: ``None`` captures on a CUDA device and calls ``fn``
 eagerly on the CPU (as the kernels' plain versions run only where the caller
@@ -56,11 +63,15 @@ the state it returns into the same buffers, and returns ``fn``'s own
 outputs.
 """
 
+import contextlib
 import gc
+import time
 
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
+
+from .profiler import profile_scope
 
 # The launch counters of the kernels' wrappers: dicts (or Counters) of ints,
 # registered by the kernel modules when they are imported.
@@ -68,6 +79,11 @@ LAUNCH_COUNTERS = []
 # id(counter) -> the keys a replay adds to, for a counter registered with
 # register_counter(counter, keys); the others are undone after a capture
 _REPLAYED_KEYS = {}
+# the programs' captures, their host seconds and their replays, over every
+# program of the process; kept out of LAUNCH_COUNTERS, so that a capture
+# neither undoes nor replays them
+GRAPH_STATS = {"captures": 0, "replays": 0, "capture_s": 0.0}
+_NO_SPAN = contextlib.nullcontext()      # a call that stages nothing
 
 
 def register_counter(counter, keys=None):
@@ -159,6 +175,7 @@ class _Graph:
     def __init__(self, inputs, staging):
         self.graph = torch.cuda.CUDAGraph()
         self.inputs, self.staging = inputs, staging
+        self.staged = any(st is not None for st in staging)
         self.outputs = None
         self.launches = None
 
@@ -225,10 +242,15 @@ class CapturedProgram:
         key = (spec, tuple(_signature(x) for x in flat))
         g = self._graphs.get(key)
         if g is None:
-            return self._first_call(key, flat, spec)
+            t0 = time.perf_counter()
+            out = self._first_call(key, flat, spec)
+            GRAPH_STATS["capture_s"] += time.perf_counter() - t0
+            GRAPH_STATS["captures"] += 1
+            return out
         self._load(g, flat)
         g.graph.replay()
         _add_counters(g.launches)
+        GRAPH_STATS["replays"] += 1
         return g.outputs
 
     def _run(self, args):
@@ -242,11 +264,12 @@ class CapturedProgram:
         return out
 
     def _load(self, g: _Graph, flat):
-        for dst, stage, x in zip(g.inputs, g.staging, flat):
-            if stage is not None:
-                stage.copy(dst, x)
-            elif torch.is_tensor(dst) and dst is not x:
-                dst.copy_(x)
+        with profile_scope("graph/stage") if g.staged else _NO_SPAN:
+            for dst, stage, x in zip(g.inputs, g.staging, flat):
+                if stage is not None:
+                    stage.copy(dst, x)
+                elif torch.is_tensor(dst) and dst is not x:
+                    dst.copy_(x)
 
     def _first_call(self, key, flat, spec):
         inputs, staging = [], []

@@ -338,6 +338,55 @@ def test_status_port_serves_state_json(caps, capsys, monkeypatch):
     assert rc == 0 and lines[-1]["rounds"] == 2 and "unavailable" in err
 
 
+def test_profile_trace_writes_the_fleet_spans(caps, tmp_path, capsys,
+                                              monkeypatch):
+    """--profile-trace PATH: the stdout lines of a run without it; the
+    fleet's spans in the Chrome trace, under this process's pid; the stage
+    table on stderr; with --port, /state.json adds that table and the
+    programs' counts; and the profiler is off again after the run."""
+    from dab_radio_tpu_torch.utils.profiler import get_profiler
+    argv = ["-i", caps.paths[0], "--subchannels", LAYOUT, *BASE]
+    want = run_cli(tserve, argv, capsys, monkeypatch)[1]
+    boxes = []
+
+    class Server:                      # the status server, minus the socket
+        def shutdown(self):
+            pass
+
+        def server_close(self):
+            pass
+
+    def start(port):
+        boxes.append({"json": b"{}", "plot": None, "plot_wanted": 0.0,
+                      "plot_built": 0.0, "plot_stream": 0})
+        return Server(), boxes[-1]
+    monkeypatch.setattr(tserve, "_start_status_server", start)
+    path = tmp_path / "trace.json"
+    assert not get_profiler().enabled
+    rc, got, err = run_cli(tserve, argv + ["--profile-trace", str(path),
+                                           "--port", "1"],
+                           capsys, monkeypatch)
+    assert rc == 0 and got == want and not get_profiler().enabled
+    rounds = want[-1]["rounds"]
+    events = json.loads(path.read_text())["traceEvents"]
+    count = {}
+    for e in events:
+        if e["ph"] == "X":
+            assert e["pid"] == os.getpid() and e["dur"] >= 0
+            count[e["name"]] = count.get(e["name"], 0) + 1
+    assert count["fleet/consume"] == count["fleet/fetch_wait"] == rounds
+    assert count["fleet/fire"] == rounds
+    assert count["fleet/push_frames"] == 4 * rounds       # a CIF a frame
+    assert count["fleet/rs_decode"] == count["fleet/finish"] > 0
+    assert count["radio/fig_parse"] > 0
+    assert "fleet/consume" in err and "# profiler:" in err
+    state = json.loads(boxes[0]["json"])
+    assert state["profiler"]["fleet/consume"]["count"] == rounds
+    assert state["graphs"] == {"captures": 0, "replays": 0,
+                               "capture_s": 0.0}           # eager: the CPU
+    assert state["totals"] == want[-1]
+
+
 def test_backend_and_variant_flags(caps, capsys):
     argv = ["-i", caps.paths[0], "--subchannels", LAYOUT, "-M", "2"]
     if not torch.cuda.is_available():

@@ -33,7 +33,8 @@ COPIED = [
 ]
 # names one side has and the other rightly lacks
 ONLY_JAX = {}
-ONLY_PORT = {"host.native": {"native_status"}}
+ONLY_PORT = {"host.native": {"native_status"},
+             "host.io": {"profile_scope"}}       # the span io/convert
 
 
 def both(name):
