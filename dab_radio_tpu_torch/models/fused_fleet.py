@@ -49,6 +49,7 @@ import torch
 
 from ..dab.aac import SuperframeProcessor
 from ..ops.crc import crc16_check_batch
+from ..ops.rs import dab_plus_rs, syndrome_constants
 from ..params import SubchannelConfig, get_dab_params, get_ofdm_params
 from ..utils.backend import to_device
 from ..utils.graphs import CapturedProgram
@@ -222,6 +223,10 @@ class FusedFleet:
         self.last_frame_offsets = np.zeros(self.N, np.int64)
         self.last_fib_ok = np.zeros(self.N, np.int64)
         self.materialized_rounds = 0   # rounds whose results reached host
+        # the byte layer's RS syndromes run on the device (_consume_batched):
+        # their constants go there now, in set-up
+        rs = dab_plus_rs()
+        syndrome_constants(rs.nroots, rs.pad, self.device)
 
     def _make_procs(self):
         """Fresh per-(stream, sub) byte-layer processors: superframe
@@ -713,10 +718,13 @@ class FusedFleet:
         ReedSolomonDecoder.decode call corrects all of them together.
         Byte-identical to the sequential path: each processor sees the
         exact same push/finish sequence, and events are re-assembled in
-        the per-stream, subchannel-major order _stream_job produces.
-        Returns a list of per-stream event lists for _fire."""
+        the per-stream, subchannel-major order _stream_job produces. The
+        batch is a CIF of the whole fleet (2,304 codewords for 16
+        ensembles of 18 DAB+ subchannels), so its syndromes are computed
+        on the fleet's device; Berlekamp-Massey and Forney stay on the
+        host for the rows they gate. Returns a list of per-stream event
+        lists for _fire."""
         from ..dab.aac import RS_MESSAGE
-        from ..ops.rs import dab_plus_rs
         C = msc_bytes.shape[2]
         for b in range(self.N):
             self._ingest_fibs(b, fibs, ok)
@@ -738,7 +746,7 @@ class FusedFleet:
                 continue
             with profile_scope("fleet/rs_decode"):
                 cw = np.concatenate([d[2] for d in done], axis=0)
-                corrected, nerr = rs.decode(cw)
+                corrected, nerr = rs.decode(cw, device=self.device)
             with profile_scope("fleet/finish"):
                 pos = 0
                 for b, s, arr in done:

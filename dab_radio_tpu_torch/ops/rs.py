@@ -15,13 +15,28 @@ cancels out of the syndromes).
 
 A copy of ``dab_radio_tpu/ops/rs.py``, but for ``rs_syndromes_device``, the
 one function there that is device code: here it takes a torch tensor and
-computes on the tensor's device.
+computes on the tensor's device, with its constants kept there
+(``syndrome_constants``). ``ReedSolomonDecoder.decode(cw, device=...)`` runs
+its syndrome stage through it: a caller that holds a device and a large
+batch (the serving fleet's byte layer, a CIF of a whole fleet at once)
+passes one; the others keep the host gather.
+
+``RS_STATS`` counts the decoder's work, always: ``calls``, ``codewords``,
+``device_codewords`` (those whose syndromes were computed on a device),
+``gated_rows`` (non-zero syndromes, sent to Berlekamp-Massey) and
+``failed_rows`` (returned with -1: uncorrectable).
 """
 
 import functools
+import threading
+
 import numpy as np
 
 _GF_POLY = 0x11D
+
+RS_STATS = {"calls": 0, "codewords": 0, "device_codewords": 0,
+            "gated_rows": 0, "failed_rows": 0}
+_STATS_LOCK = threading.Lock()
 
 
 @functools.lru_cache(maxsize=1)
@@ -91,28 +106,50 @@ class ReedSolomonDecoder:
         j = np.arange(nroots)[:, None]
         self._syn_alpha = exp[(j * pw) % 255].astype(np.int32)
 
-    def decode(self, codewords: np.ndarray):
+    def decode(self, codewords: np.ndarray, device=None):
         """codewords: (..., n) uint8 (message || parity). Returns
         (corrected (..., n) uint8, nb_errors (...,) int32; -1 where
-        uncorrectable)."""
-        cw = np.array(codewords, dtype=np.int32)
+        uncorrectable). With a torch `device` the syndromes are computed
+        there (rs_syndromes_device: one copy up, one product, one copy
+        back); the same results, worth a launch only for a large batch."""
+        cw = np.array(codewords, dtype=np.uint8)
         batch_shape = cw.shape[:-1]
         cw2 = cw.reshape(-1, self.n)
-        t = self.nroots
 
-        # S_j = sum_i c[i] * alpha^{j*(n-1-i)}, all codewords and all j in
-        # one (M, t, n) table gather + XOR reduction
-        S = np.bitwise_xor.reduce(
-            _mul_table()[cw2[:, None, :], self._syn_alpha[None, :, :]],
-            axis=2)
+        if device is None:
+            # S_j = sum_i c[i] * alpha^{j*(n-1-i)}, all codewords and all j
+            # in one (M, t, n) table gather + XOR reduction
+            S = np.bitwise_xor.reduce(
+                _mul_table()[cw2[:, None, :], self._syn_alpha[None, :, :]],
+                axis=2)
+        else:
+            # on a CUDA device on the constants' own stream, which waits
+            # for nothing the caller queued on its own (the fleet's next
+            # round)
+            import torch
+            consts = syndrome_constants(self.nroots, self.pad, device)
+            with torch.cuda.stream(consts[3]):
+                S = rs_syndromes_device(
+                    torch.from_numpy(cw2).to(consts[0].device), self.nroots,
+                    self.pad).cpu().numpy()
 
         nb_errors = np.zeros(cw2.shape[0], dtype=np.int32)
         bad = np.nonzero(S.any(axis=1))[0]
+        failed = 0
         if bad.size:
-            fixed, nerr = self._decode_many(cw2[bad], S[bad])
+            fixed, nerr = self._decode_many(cw2[bad].astype(np.int32),
+                                            S[bad].astype(np.int32))
             cw2[bad] = fixed
             nb_errors[bad] = nerr
-        return cw2.reshape(*batch_shape, self.n).astype(np.uint8), \
+            failed = int((nerr < 0).sum())
+        with _STATS_LOCK:             # consume workers decode in threads
+            RS_STATS["calls"] += 1
+            RS_STATS["codewords"] += cw2.shape[0]
+            if device is not None:
+                RS_STATS["device_codewords"] += cw2.shape[0]
+            RS_STATS["gated_rows"] += bad.size
+            RS_STATS["failed_rows"] += failed
+        return cw2.reshape(*batch_shape, self.n), \
             nb_errors.reshape(batch_shape)
 
     def _decode_many(self, cw: np.ndarray, S: np.ndarray):
@@ -335,6 +372,35 @@ def syndrome_bit_matrix(nroots: int, pad: int) -> np.ndarray:
     return M
 
 
+_SYNDROME_CONSTANTS = {}
+
+
+def syndrome_constants(nroots: int, pad: int, device):
+    """(bit matrix (n*8, nroots*8) float32, bit shifts, byte weights, the
+    stream the decoder's device stage runs on: None off CUDA), resident on
+    `device` and built once per (nroots, pad, device)."""
+    import torch
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (nroots, pad, dev)
+    if key not in _SYNDROME_CONSTANTS:
+        # high priority: its few small kernels go ahead of the blocks of
+        # work queued on other streams
+        stream = torch.cuda.Stream(dev, priority=-1) \
+            if dev.type == "cuda" else None
+        with torch.cuda.stream(stream):
+            consts = (torch.as_tensor(syndrome_bit_matrix(nroots, pad),
+                                      dtype=torch.float32, device=dev),
+                      torch.arange(7, -1, -1, dtype=torch.uint8, device=dev),
+                      128 >> torch.arange(8, dtype=torch.int32, device=dev),
+                      stream)
+        if stream is not None:
+            stream.synchronize()      # any stream may read them from now on
+        _SYNDROME_CONSTANTS[key] = consts
+    return _SYNDROME_CONSTANTS[key]
+
+
 def rs_syndromes_device(codewords, nroots: int, pad: int):
     """Syndromes on the device of `codewords`: (..., n) uint8 tensor ->
     (..., nroots) uint8 tensor on the same device. Use `.any(-1)` as the
@@ -344,15 +410,10 @@ def rs_syndromes_device(codewords, nroots: int, pad: int):
     below 2^24, and 0/1 inputs are exact even under TF32."""
     import torch
     n = 255 - pad
-    dev = codewords.device
-    M = torch.as_tensor(syndrome_bit_matrix(nroots, pad),
-                        dtype=torch.float32, device=dev)
-    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=dev)
+    M, shifts, weights, _ = syndrome_constants(nroots, pad, codewords.device)
     bits = (codewords[..., :, None].to(torch.uint8) >> shifts) & 1
     bits = bits.reshape(*codewords.shape[:-1], n * 8).to(torch.float32)
     syn_bits = (bits @ M).to(torch.int32) & 1
-    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32,
-                           device=dev)
     syn = (syn_bits.reshape(*codewords.shape[:-1], nroots, 8)
            * weights).sum(dim=-1)
     return syn.to(torch.uint8)

@@ -444,3 +444,55 @@ def test_decode_variants_match_jax_and_survive_a_snapshot(streams, kw):
     assert events + events2 == want["events"]
     assert resumed.summary() == want["summary"]
     assert any(e[0] == "au" for e in events2)
+
+
+def _corrupting(fleet):
+    """Flip bytes of each round's subchannel bytes before the byte layer
+    sees them. A subchannel here carries 48 bytes a CIF, so a superframe
+    is 2 RS(120,110) codewords of 5 CIFs, byte p of it in codeword p % 2.
+    Stream 0, subchannel 0: byte 30 of every CIF, 5 errors (t/2, one in a
+    parity byte) in codeword 0 of every superframe: all corrected. Stream
+    1, subchannel 1: bytes 13, 15, 17 of each round's second CIF, 3 errors
+    in codeword 1, or 6 (uncorrectable) where a superframe holds two."""
+    assert fleet._nbytes[0] == [48, 48]
+    consume = fleet._consume
+
+    def corrupted(fib_bytes, msc_bytes):
+        msc_bytes = msc_bytes.copy()
+        msc_bytes[0, 0, :, 30] ^= 0x5A
+        msc_bytes[1, 1, 1, [13, 15, 17]] ^= 0xA5
+        consume(fib_bytes, msc_bytes)
+    fleet._consume = corrupted
+    return fleet
+
+
+def test_batched_byte_layer_takes_rs_syndromes_on_the_device(streams,
+                                                             jax_runs):
+    """_consume_batched decodes each CIF's superframes with their
+    syndromes on the fleet's device: with errors injected into two
+    streams' superframes, its events are byte-identical to the sequential
+    path's (_stream_job, the host syndromes a superframe at a time), the
+    corrected subchannel gives the clean run's AUs, and every codeword of
+    its decodes went through the device stage."""
+    from dab_radio_tpu_torch.ops.rs import RS_STATS
+    seq = _corrupting(make_tfleet())
+    seq._consume_batched = lambda fibs, ok, msc: [
+        seq._stream_job(b, fibs, ok, msc) for b in range(seq.N)]
+    before = dict(RS_STATS)
+    want = full_run(seq, streams)
+    assert RS_STATS["device_codewords"] == before["device_codewords"]
+
+    before = dict(RS_STATS)
+    got = full_run(_corrupting(make_tfleet()), streams)
+    used = {k: RS_STATS[k] - before[k] for k in before}
+    assert got == want
+    assert used["codewords"] > 0
+    assert used["device_codewords"] == used["codewords"]
+    assert used["gated_rows"] > used["failed_rows"] > 0
+
+    def aus(events, b, s):
+        return [e for e in events if e[:3] == ("au", b, s)]
+    clean = jax_runs[True]["events"]
+    assert aus(got["events"], 0, 0) == aus(clean, 0, 0)
+    assert aus(got["events"], 0, 1) == aus(clean, 0, 1)
+    assert 0 < len(aus(got["events"], 1, 1)) < len(aus(clean, 1, 1))

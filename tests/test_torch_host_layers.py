@@ -34,7 +34,10 @@ COPIED = [
 # names one side has and the other rightly lacks
 ONLY_JAX = {}
 ONLY_PORT = {"host.native": {"native_status"},
-             "host.io": {"profile_scope"}}       # the span io/convert
+             "host.io": {"profile_scope"},       # the span io/convert
+             # the decoder's counters and its device stage's constants
+             "ops.rs": {"RS_STATS", "_STATS_LOCK", "threading",
+                        "syndrome_constants", "_SYNDROME_CONSTANTS"}}
 
 
 def both(name):
