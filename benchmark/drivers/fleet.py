@@ -7,6 +7,11 @@ loop: the next round is handed in as soon as process_round returns.
 Stream b plays capture b % captures, looped from the byte offset that
 FusedFleet.find_alignment gives on the capture's head. The rounds of a
 period are stacked once in set-up; a round is then handed in as it is.
+
+A classic DAB service's subchannel is served as "mp2", as
+FusedFleet.from_receivers derives it from FIG 0/2's ASCTy: its MP2 frames
+fire on_mp2_frame, one a logical frame, and are kept as units at index 0
+of their round, as an AU is kept.
 """
 
 import time
@@ -31,11 +36,15 @@ class Driver:
                                  s.sub.is_uep, s.sub.uep_table_index,
                                  s.sub.eep_type, s.sub.eep_prot_level)
                 for s in ens.services]
+        kinds = ["mp2" if s.kind == "dab" else "audio" for s in ens.services]
         self.fleet = FusedFleet(
             self.N, cfgs, transmission_mode=ens.mode, frames_per_step=self.K,
             device=device, viterbi=serving["viterbi"],
-            consume_workers=serving["consume_workers"])
+            consume_workers=serving["consume_workers"],
+            subchannel_kinds=kinds if "mp2" in kinds else None)
         self.fleet.on_access_unit.append(self._on_au)
+        if "mp2" in kinds:
+            self.fleet.on_mp2_frame.append(self._on_mp2)
         fs = traffic.frame_samples
         period = 2 * traffic.period_frames * fs          # bytes
         chunk, tb = 2 * self.K * fs, self.fleet.tail_bytes
@@ -67,10 +76,10 @@ class Driver:
         self.in_window = False
         self.handed_in = []            # host clock of each process_round
         self.consuming = -1            # the round whose outputs arrive now
-        # the AUs (bytes, which the collector does not track) and, in
-        # arrays, their index and round, per (stream, subchannel); the
-        # latency samples in arrays: the records add no work to the
-        # garbage collector while the window runs
+        # the AUs and MP2 frames (bytes, which the collector does not
+        # track) and, in arrays, their index and round, per (stream,
+        # subchannel); the latency samples in arrays: the records add no
+        # work to the garbage collector while the window runs
         S = len(ens.services)
         self._aus = [[[] for _ in range(S)] for _ in range(self.N)]
         self._meta = [[array("q") for _ in range(S)] for _ in range(self.N)]
@@ -88,6 +97,9 @@ class Driver:
         if i == 0:
             self.latency.add(time.perf_counter(),
                              self.handed_in[self.consuming], n)
+
+    def _on_mp2(self, b, s, frame):
+        self._on_au(b, s, 0, 1, frame, None)
 
     def step(self):
         r = self.rounds_in

@@ -24,6 +24,9 @@ class Driver:
         from dab_radio_tpu_torch.models.demodulator import (
             OFDMDemodulator, StreamingDemodulator)
         from dab_radio_tpu_torch.models.receiver import DabReceiver
+        if any(s.kind != "dab+" for s in traffic.ensemble.services):
+            raise ValueError("the tuner driver serves DAB+ services only: "
+                             "a classic DAB (MP2) service has no cell here")
         serving = config["serving"]
         mode = traffic.ensemble.mode
         self.block = serving["block_bytes"]

@@ -6,10 +6,12 @@ from array import array
 
 class SpanTotals:
     """The program's span table (utils/profiler.py), summed over the
-    window's steps. That profiler keeps every span and hashes the whole
-    list of them at each top-level span's end, a cost that grows with the
-    spans kept; so the harness folds the table and empties it after every
-    step, and each step pays for its own spans alone."""
+    window's steps. That profiler keeps running totals a span name and
+    thread (count, total, longest), exact however many spans close, and
+    each thread's latest spans in a ring of bounded length (its RING), so
+    a span costs the same however many came before it. fold() adds the
+    table's counts and totals to the sums here and empties it after every
+    step: the sums are what the table would read at the window's end."""
 
     def __init__(self, profiler):
         self.profiler = profiler

@@ -2,16 +2,23 @@
 against what was sent and against the plain reference.
 
 Numbers compared, each with its limit (a cell's "check" block):
-- au_errors: access units due in the window that never came, plus any
-  access unit that came with other bytes, at another index, twice, or out
-  of place. Exact: limit 0. An access unit is due when the last CIF of its
-  superframe's last logical frame has reached the program (15 CIFs of time
-  interleaving after that frame's own); it may come late (with the deferred
-  round, or the flush after the window), not wrong.
+- au_errors: units due in the window that never came, plus any unit that
+  came with other bytes, at another index, twice, or out of place. Exact:
+  limit 0. A unit is a DAB+ access unit, or a classic DAB service's MP2
+  frame, which counts here under the same rules: one unit (index 0) a
+  group of one logical frame. A unit is due when the last CIF of its
+  group's last logical frame (a superframe's fifth, the MP2 frame's own)
+  has reached the program, plus 15 CIFs of time interleaving; it may come
+  late (with the deferred round, or the flush after the window), not
+  wrong. The first 15 MP2 frames of each stream and subchannel are not
+  judged: a stream's time deinterleaver starts cold and holds none of
+  their earlier CIFs' bits, and an MP2 frame has no check by which the
+  program could hold them back (a DAB+ superframe has its firecode).
 - db_errors: fields of the ensemble database decoded from the FIBs (the
   ensemble's id and label; each service's id, label and component; each
-  subchannel's address, size and protection) that differ from what the
-  FIGs sent, and entries that were not sent. Exact: limit 0.
+  subchannel's address, size and protection: EEP's type and level, or
+  UEP's table index) that differ from what the FIGs sent, and entries that
+  were not sent. Exact: limit 0.
 - lost_sync: frames that lost sync (the demodulator's own count), rounds of
   a stream whose FIBs did not all pass their CRC, frames of the stream the
   tuner never yielded, and fleet streams whose read grid (the frame start
@@ -54,7 +61,7 @@ def verdict(numbers: dict, limits: dict) -> bool:
 
 
 def _sent_index(traffic):
-    """[capture][service] {au bytes: (superframe, index)}."""
+    """[capture][service] {unit bytes: (group, index)}."""
     return [[{au: (k, i) for k, sf in enumerate(aus)
               for i, au in enumerate(sf)} for aus in cap]
             for cap in traffic.sent]
@@ -62,44 +69,91 @@ def _sent_index(traffic):
 
 def access_units(traffic, out: dict, unit_cifs, window: tuple) -> dict:
     """unit_cifs(stream, unit) -> (first period CIF, end) of the unit (a
-    round or a frame) whose processing delivered an AU; window = (first,
-    last) unit whose outputs came back inside the window."""
+    round or a frame) whose processing delivered an AU or an MP2 frame;
+    window = (first, last) unit whose outputs came back inside the
+    window. A fleet keeps millions of units a run, so each is looked up
+    once in Python and the rest is worked out on arrays."""
     nb_cifs = S.dab_params(traffic.ensemble.mode).nb_cifs
-    sfp = traffic.superframes
+    services = traffic.ensemble.services
+    n_svc = len(services)
     period_cifs = traffic.period_frames * nb_cifs
     index = _sent_index(traffic)
-    delivered, wrong = set(), 0
-    for b, s, i, au, unit in out["aus"]:
-        v = out["capture_of"][b]
-        hit = index[v][s].get(au) if s is not None else None
-        if hit is None or hit[1] != i:
-            wrong += 1
-            continue
-        lo, hi = unit_cifs(b, unit)
-        mid = (lo + hi) / 2
-        k = hit[0]
-        K = k + sfp * int(round((mid - _due(0) - T.SUPERFRAME_FRAMES * k)
-                                / period_cifs))
-        key = (b, s, K, i)
-        if key in delivered or _due(K) >= hi:        # twice, or too soon
-            wrong += 1
-            continue
-        delivered.add(key)
-    due = set()
-    for b in range(len(out["capture_of"])):
-        lo, _ = unit_cifs(b, window[0])
-        _, hi = unit_cifs(b, window[1])
-        for K in range(-(-(lo - _due(0)) // T.SUPERFRAME_FRAMES),
-                       (hi - 1 - _due(0)) // T.SUPERFRAME_FRAMES + 1):
-            for s, svc in enumerate(traffic.ensemble.services):
-                due |= {(b, s, K, i) for i in range(svc.num_aus)}
-    missing = len(due - delivered)
-    return {"wrong": wrong, "missing": missing, "attempted": len(due)}
+    capture_of = out["capture_of"]
+    recs = out["aus"]
+    n = len(recs)
+    # what was sent with these bytes: (group, index), None for bytes never
+    # sent and for a subchannel that was not sent (s None)
+    hits = [index[capture_of[b]][s].get(au) if s is not None else None
+            for b, s, _, au, _ in recs]
+
+    def col(values):
+        return np.fromiter(values, np.int64, n)
+    b = col(r[0] for r in recs)
+    s = col(-1 if r[1] is None else r[1] for r in recs)
+    i = col(r[2] for r in recs)
+    unit = col(r[4] for r in recs)
+    k = col(-1 if h is None else h[0] for h in hits)
+    i_sent = col(-1 if h is None else h[1] for h in hits)
+
+    # MP2 frames are judged from the 16th of their (stream, service) on,
+    # counted in the order they were kept
+    mp2 = np.array([svc.kind == "dab" for svc in services] + [False])[s]
+    group = b * (n_svc + 1) + s + 1
+    order = np.argsort(group, kind="stable")
+    seen = np.empty(n, np.int64)
+    seen[order] = np.arange(n) - np.searchsorted(group[order], group[order])
+    judged = ~(mp2 & (seen < INTERLEAVE_CIFS))
+    ok = judged & (k >= 0) & (i_sent == i)
+    wrong = int(np.count_nonzero(judged & ~ok))
+    b, s, i, unit, k = (x[ok] for x in (b, s, i, unit, k))
+
+    # the CIFs of each unit's round or frame, asked once a (stream, unit)
+    u0 = int(unit.min(initial=0))
+    span = int(unit.max(initial=0)) - u0 + 1
+    pairs, at = np.unique(b * span + unit - u0, return_inverse=True)
+    cifs = np.array([unit_cifs(int(p // span), int(p % span) + u0)
+                     for p in pairs], np.int64).reshape(-1, 2)
+    lo, hi = cifs[at, 0], cifs[at, 1]
+    L = np.array([svc.group_frames for svc in services], np.int64)[s]
+    groups = np.array([traffic.groups(svc) for svc in services], np.int64)[s]
+    mid = (lo + hi) / 2
+    K = k + groups * np.round((mid - _due(0, L) - L * k)
+                              / period_cifs).astype(np.int64)
+    soon = _due(K, L) >= hi
+    wrong += int(np.count_nonzero(soon))
+    b, s, i, K = (x[~soon] for x in (b, s, i, K))
+    # each (stream, service, group, index) once: the others came twice
+    k0 = int(K.min(initial=0))
+    n_k = int(K.max(initial=0)) - k0 + 1
+    n_u = max(svc.group_units for svc in services)
+    delivered = np.unique(((b * n_svc + s) * n_k + K - k0) * n_u + i)
+    wrong += len(K) - len(delivered)
+
+    # due: the groups whose last logical frame is whole within the window
+    first = np.zeros((len(capture_of), n_svc), np.int64)
+    last = np.zeros_like(first)
+    attempted = 0
+    for bb in range(len(capture_of)):
+        w0, _ = unit_cifs(bb, window[0])
+        _, w1 = unit_cifs(bb, window[1])
+        for ss, svc in enumerate(services):
+            Ls = svc.group_frames
+            first[bb, ss] = -(-(w0 - _due(0, Ls)) // Ls)
+            last[bb, ss] = (w1 - 1 - _due(0, Ls)) // Ls
+            attempted += max(0, last[bb, ss] - first[bb, ss] + 1) \
+                * svc.group_units
+    bs, Kd = (delivered // n_u) // n_k, (delivered // n_u) % n_k + k0
+    bd, sd = bs // n_svc, bs % n_svc
+    came = np.count_nonzero((Kd >= first[bd, sd]) & (Kd <= last[bd, sd]))
+    return {"wrong": wrong, "missing": int(attempted - came),
+            "attempted": int(attempted)}
 
 
-def _due(K: int) -> int:
-    """The period CIF at which superframe K's last logical frame is whole."""
-    return T.SUPERFRAME_FRAMES * K + T.SUPERFRAME_FRAMES - 1 + INTERLEAVE_CIFS
+def _due(K: int, L: int = T.SUPERFRAME_FRAMES) -> int:
+    """The period CIF at which group K (of L logical frames: a superframe,
+    or an MP2 frame) is whole: its last logical frame out of the time
+    interleaver."""
+    return L * K + L - 1 + INTERLEAVE_CIFS
 
 
 def database(traffic, dbs) -> int:
@@ -120,6 +174,8 @@ def database(traffic, dbs) -> int:
             if sub is not None and not svc.sub.is_uep:
                 errors += (sub.eep_type, sub.eep_prot_level) != (
                     svc.sub.eep_type, svc.sub.eep_prot_level)
+            if sub is not None and svc.sub.is_uep:
+                errors += sub.uep_table_index != svc.sub.uep_table_index
             comp = db.component_by_subchannel(svc.subchannel_id)
             errors += comp is None or comp.service_id != svc.service_id \
                 or comp.audio_service_type != (63 if svc.kind == "dab+" else 0)

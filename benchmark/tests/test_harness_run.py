@@ -1,11 +1,13 @@
 """A run of each cell at a small size on the CPU, with the harness's look
 for a card skipped: the result's shape, the sound run correct, each fault
-the cell can have and the control coming out not correct; and on a card,
-the control at the cell's own size."""
+the cell can have and the control coming out not correct, the check's
+numbers on runs of a fixed length as they were before it judged MP2
+frames; and on a card, the control at the cell's own size."""
 
 import json
 import os
 
+import numpy as np
 import pytest
 
 from conftest import FLEET, TUNER, run_tiny
@@ -137,12 +139,26 @@ def test_traced_run_reads_the_host_layers_and_puts_the_program_back(
     line = run_tiny(tiny, cell, trace=True)
     assert list(line) == KEYS + ["checks"] and line["correct"]
     want = {FLEET: {"byte_layer.consume_ms_per_air_s",
+                    "byte_layer.push_frames_ms_per_air_s",
                     "rs.decode_ms_per_air_s",
-                    "superframe.finish_ms_per_air_s"},
+                    "superframe.finish_ms_per_air_s",
+                    "round.fetch_wait_ms_per_air_s",
+                    "rs.device_codewords_pct"},
             TUNER: {"rs.decode_ms_per_air_s", "superframe.finish_ms_per_air_s",
-                    "receiver.msc_channels_ms_per_air_s"}}[cell]
+                    "receiver.msc_channels_ms_per_air_s",
+                    "receiver.msc_fetch_ms_per_air_s",
+                    "receiver.superframes_ms_per_air_s",
+                    "demod.fetch_ms_per_air_s",
+                    "rs.device_codewords_pct"}}[cell]
     assert set(line["metrics"]) == want
-    assert all(m["value"] > 0 for m in line["metrics"].values())
+    # a time is spent wherever it is read; the share of codewords whose
+    # syndromes ran on the device: all of the fleet's (its CIF batch is
+    # handed its device), none of the tuner's
+    times = {k: m["value"] for k, m in line["metrics"].items()
+             if k.endswith("_ms_per_air_s")}
+    assert len(times) == len(want) - 1 and min(times.values()) > 0
+    assert line["metrics"]["rs.device_codewords_pct"]["value"] == \
+        {FLEET: 100.0, TUNER: 0.0}[cell]
     assert before == (FusedFleet.__dict__["_consume"],
                       SuperframeProcessor.__dict__["finish"],
                       ReedSolomonDecoder.__dict__["decode"])
@@ -160,3 +176,59 @@ def test_a_traffic_key_that_nothing_reads_stops_the_run(tiny):
         json.dump(cell, f)
     with pytest.raises(ValueError, match="loop"):
         run_tiny(tiny, name)
+
+
+def _fixed_run(tiny, cell, steps, seed=123456789012):
+    """The traffic, the driver's outputs and the window of a run of
+    `steps` steps after the warm-up, as run.run_cell drives them, without
+    the clock."""
+    from harness import spec
+    from traffic import generate
+    _, bench = tiny
+    c = spec.cell(cell, bench)
+    config = spec.config(c["config"], bench)
+    traffic = generate.make(config["multiplex"], c["traffic"], seed, "cpu")
+    driver = spec.driver(config["driver"], bench).Driver(
+        config, c, traffic, "cpu", np.random.default_rng([seed, 7]))
+    driver.warm_up(**c["warmup"])
+    unit0 = driver.last_unit
+    driver.in_window = True
+    for _ in range(steps):
+        driver.step()
+    driver.in_window = False
+    window = (unit0 + 1, driver.last_unit)
+    driver.finish()
+    return traffic, driver.outputs(), window, c["check"]
+
+
+# check.compare on runs of a fixed length, and on the same outputs with
+# the first AU of the window's second unit altered, left out, and kept
+# twice: (steps, window, AUs kept, attempted, the integer numbers, then
+# au_errors with each fault), as the check read them when it judged DAB+
+# alone
+BEFORE = {
+    FLEET: (6, (5, 10), 204, 108, {"au_errors": 0, "db_errors": 0,
+                                   "lost_sync": 0}, (2, 1, 1)),
+    TUNER: (10, (12, 17), 66, 30, {"au_errors": 0, "db_errors": 0,
+                                   "lost_sync": 0, "softbit_gap": 1},
+            (2, 1, 1)),
+}
+
+
+@pytest.mark.parametrize("cell", [FLEET, TUNER])
+def test_the_checks_numbers_on_dabplus_are_as_before(tiny, cell):
+    from reference import check
+    steps, window, kept, attempted, numbers, faults = BEFORE[cell]
+    traffic, out, got_window, cell_check = _fixed_run(tiny, cell, steps)
+    assert got_window == window and len(out["aus"]) == kept
+    r = check.compare(traffic, out, window, cell_check, "cpu")
+    assert r["attempted"] == attempted and r["failed"] == 0
+    assert {k: v for k, v in r["numbers"].items() if k in numbers} == numbers
+    aus = out["aus"]
+    j = next(k for k, a in enumerate(aus) if a[4] == window[0] + 1)
+    b, s, i, au, u = aus[j]
+    broken = (aus[:j] + [(b, s, i, bytes([au[0] ^ 1]) + au[1:], u)]
+              + aus[j + 1:], aus[:j] + aus[j + 1:], aus + [aus[j]])
+    assert tuple(check.compare(traffic, dict(out, aus=a), window, cell_check,
+                               "cpu")["numbers"]["au_errors"]
+                 for a in broken) == faults

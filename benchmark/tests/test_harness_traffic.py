@@ -1,8 +1,14 @@
 """The frozen transmit chain: the same IQ as the port's transmitter, the
-same captures from the same seed, and a period that loops seamlessly."""
+same captures from the same seed, DAB+ captures as they were before the
+generator coded MP2 frames, and a period that loops seamlessly."""
+
+import hashlib
 
 import numpy as np
+import pytest
 
+from conftest import FLEET, TUNER
+from harness import spec
 from traffic import generate, transmit
 
 MUX = {"mode": 1, "ensemble_id": "C0FE", "ensemble_label": "TPU Ensemble",
@@ -77,3 +83,46 @@ def test_looped_period_is_seamless():
         assert aus == looped
         # the last two periods' superframes all came out
         assert len(aus) >= 2 * per_period * svc.num_aus
+
+
+# SHA-256 of the tiny cells' captures and of the units they carry, seed
+# 123456789012, as the generator made them when it coded DAB+ alone
+DABPLUS_SHA256 = {
+    FLEET: ("4dea7955f8b540efc724e11f46d5c807250d642751879a7f407c11c4faef3630",
+            "09d908a455a43ec1c22249c007874adfcc7a6810c4e691fcd16f809e7a56bc78"),
+    TUNER: ("1d98c84676c3db2dbb69ea3b216cb7fb51a89ff9800c74163fc76a4106e5d22f",
+            "f42510f3a6dbb7d5c531dd53b7ed1f583a28c208aa1f7f750a80e13fb75a6595"),
+}
+
+
+@pytest.mark.parametrize("cell", [FLEET, TUNER])
+def test_dabplus_captures_are_as_before(tiny, cell):
+    _, bench = tiny
+    c = spec.cell(cell, bench)
+    t = generate.make(spec.config(c["config"], bench)["multiplex"],
+                      c["traffic"], 123456789012, "cpu")
+    caps, units = hashlib.sha256(), hashlib.sha256()
+    for cap in t.captures:
+        caps.update(cap.tobytes())
+    for au in (au for cap in t.sent for svc in cap for sf in svc
+               for au in sf):
+        units.update(au)
+    assert (caps.hexdigest(), units.hexdigest()) == DABPLUS_SHA256[cell]
+
+
+def test_mp2_frames_have_a_layer_ii_header_and_no_pad():
+    from dab_radio_tpu_torch.dab.mp2 import parse_mp2_header
+    mux = {**MUX, "services": [{"count": 2, "kind": "dab", "size_cu": 96,
+                                "uep_level": 3, "first_service_id": "F200",
+                                "first_subchannel_id": 10,
+                                "label": "Classic {n}"}]}
+    ens = transmit.ensemble_of(mux)
+    frames = transmit.random_mp2(ens.services[0], 40,
+                                 np.random.default_rng(3))
+    assert len(frames) == 40 and all(len(g) == 1 for g in frames)
+    for (f,) in frames:
+        h = parse_mp2_header(f)
+        assert (h.mpeg_version, h.sample_rate, h.bitrate_kbps,
+                h.frame_bytes, len(f)) == (1, 48000, 128, 384, 384)
+        assert f[1] & 1 and not f[2] & 2 and f[-2:] == b"\0\0"
+    assert len({f for (f,) in frames}) == 40

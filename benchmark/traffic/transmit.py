@@ -1,16 +1,17 @@
 """A frozen copy of the port's transmit chain: ensemble description, FIG
-and FIB encoding, DAB+ superframes, MSC and FIC channel coding, time
-interleaving and the OFDM modulator.
+and FIB encoding, DAB+ superframes, classic DAB's MP2 frames, MSC and FIC
+channel coding, time interleaving and the OFDM modulator.
 
 Copied from the port's ``models/transmitter.py`` (FIG constructors, the FIB
-carousel, the frame layout), ``dab/aac.py:SuperframeEncoder``,
-``dab/fic.py:FICEncoder``, ``dab/msc.py:MSCEncoder`` and
-``models/modulator.py`` (QPSK, frequency interleaving, differential phase,
-IFFT, cyclic prefix, NULL), rewritten to code all frames of a period at
-once. ``periodic=True`` makes the traffic loop seamlessly: the time
-interleaver of the period's first CIFs holds the bits of its last logical
-frames, as if the period had been sent before. ``periodic=False`` starts
-from an empty interleaver, as the port's transmitter does.
+carousel, the frame layout, ``_next_mp2_frame``),
+``dab/aac.py:SuperframeEncoder``, ``dab/fic.py:FICEncoder``,
+``dab/msc.py:MSCEncoder`` and ``models/modulator.py`` (QPSK, frequency
+interleaving, differential phase, IFFT, cyclic prefix, NULL), rewritten to
+code all frames of a period at once. ``periodic=True`` makes the traffic
+loop seamlessly: the time interleaver of the period's first CIFs holds the
+bits of its last logical frames, as if the period had been sent before.
+``periodic=False`` starts from an empty interleaver, as the port's
+transmitter does.
 """
 
 from dataclasses import dataclass, field
@@ -49,6 +50,17 @@ class Service:
         """Bytes of one logical frame (24 ms) of the subchannel."""
         return S.bitrate_kbps(self.sub) * 3
 
+    @property
+    def group_frames(self) -> int:
+        """Logical frames of one group of units: a DAB+ superframe's 5, an
+        MP2 frame's 1 (classic DAB: the logical frame is the MP2 frame)."""
+        return SUPERFRAME_FRAMES if self.kind == "dab+" else 1
+
+    @property
+    def group_units(self) -> int:
+        """Units of one group: a superframe's AUs, or the one MP2 frame."""
+        return self.num_aus if self.kind == "dab+" else 1
+
 
 @dataclass(frozen=True)
 class Ensemble:
@@ -72,11 +84,17 @@ def _protection(group: dict, start: int) -> S.Subchannel:
     return S.Subchannel(start, size, True, uep_table_index=rows[0])
 
 
+KINDS = ("dab+", "dab")
+
+
 def ensemble_of(multiplex: dict) -> Ensemble:
     """The ensemble a configuration's "multiplex" describes: groups of
     services, laid out one after another from capacity unit 0."""
     services, start, n = [], 0, 0
     for group in multiplex["services"]:
+        if group.get("kind", "dab+") not in KINDS:
+            raise ValueError(f"a service kind the generator does not code: "
+                             f"{group['kind']!r} (one of {KINDS})")
         sid = int(group["first_service_id"], 16)
         for i in range(group["count"]):
             sub = _protection(group, start)
@@ -226,6 +244,49 @@ def encode_superframes(svc: Service, aus: List[List[bytes]]) -> np.ndarray:
     cw = S.rs_encode(msgs.reshape(-1, RS_DATA)).reshape(n_sf, n_cols,
                                                         RS_MESSAGE)
     return cw.transpose(0, 2, 1).reshape(n_sf * SUPERFRAME_FRAMES, fb)
+
+
+# ---- classic DAB: MP2 frames (EN 300 401 clause 7) ----
+
+# MPEG-1 Layer II bitrates (kbit/s) by the header's bitrate index
+MP2_BITRATES = [0, 32, 48, 56, 64, 80, 96, 112, 128, 160, 192, 224, 256,
+                320, 384]
+
+
+def random_mp2(svc: Service, frames: int, rng) -> List[List[bytes]]:
+    """[logical frame][0] one MP2 frame a logical frame, frame_bytes each:
+    an MPEG-1 Layer II header (48 kHz, the subchannel's bitrate, no CRC, no
+    padding, stereo), a random body and a zero F-PAD in the last 2 bytes
+    (no X-PAD). The port's _next_mp2_frame writes 0xFC as the second
+    byte, whose protection bit 0 announces a CRC that the frame does not
+    carry; here it is 0xFD."""
+    kbps = S.bitrate_kbps(svc.sub)
+    if kbps not in MP2_BITRATES[1:]:
+        raise ValueError(f"{kbps} kbit/s is no MPEG-1 Layer II bitrate")
+    body = rng.integers(0, 256, (frames, svc.frame_bytes), dtype=np.uint8)
+    body[:, 0] = 0xFF
+    body[:, 1] = 0xFD                 # MPEG-1, Layer II, no CRC
+    body[:, 2] = (MP2_BITRATES.index(kbps) << 4) | (1 << 2)    # 48 kHz
+    body[:, 3] = 0x00                 # stereo
+    body[:, -2:] = 0                  # F-PAD: none
+    return [[row.tobytes()] for row in body]
+
+
+def random_units(svc: Service, groups: int, rng) -> List[List[bytes]]:
+    """[group][unit] random payloads of a period: superframes of AUs for
+    DAB+, MP2 frames for classic DAB."""
+    if svc.kind == "dab+":
+        return random_aus(svc, groups, rng)
+    return random_mp2(svc, groups, rng)
+
+
+def logical_frames(svc: Service, units: List[List[bytes]]) -> np.ndarray:
+    """[group][unit] -> (logical frames, frame_bytes): DAB+ superframes
+    coded with their RS parity, MP2 frames as they are."""
+    if svc.kind == "dab+":
+        return encode_superframes(svc, units)
+    return np.frombuffer(b"".join(g[0] for g in units),
+                         np.uint8).reshape(len(units), svc.frame_bytes)
 
 
 # ---- MSC channel coding and time interleaving ----
