@@ -1048,7 +1048,8 @@ BYTE_LAYER_PARTS = {
     "push_frame": ("dab.aac", "SuperframeProcessor", "push_frame"),
     "rs_decode": ("ops.rs", "ReedSolomonDecoder", "decode"),
     "finish": ("dab.aac", "SuperframeProcessor", "finish"),
-    "other_kinds": ("models.fused_fleet", "FusedFleet", "_other_kinds"),
+    "mp2_events": ("models.fused_fleet", "FusedFleet", "_mp2_events"),
+    "packet_events": ("models.fused_fleet", "FusedFleet", "_packet_events"),
     "fire": ("models.fused_fleet", "FusedFleet", "_fire"),
     "msc_dispatch": ("dab.msc", "MSCDecodeGroup", "dispatch"),
 }
@@ -1062,7 +1063,7 @@ class _ByteLayerTimers:
     """While active, times the host byte layer part by part
     (BYTE_LAYER_PARTS): each part's method is wrapped at class level and put
     back on exit, also after an exception. A timed call made inside another
-    one (a packet processor's RS decode inside _other_kinds) is neither
+    one (a packet processor's RS decode inside _packet_events) is neither
     timed nor counted: the parts never overlap. process_frame is no part, so
     the push_frame, RS decode and finish it makes count each once. Sums are
     kept per thread, so under the consume workers' pool a part's time is

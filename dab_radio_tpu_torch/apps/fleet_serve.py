@@ -23,8 +23,9 @@ Prints one JSON summary line per stream plus a fleet total. With --port,
 /state.json serves the live status and /plot.json one stream's OFDM plots.
 --profile-trace PATH turns the stage profiler on (``utils/profiler.py``):
 at the end its table goes to stderr and its spans to PATH as a Chrome
-trace, and /state.json adds the table and the programs' capture and replay
-counts (``utils/graphs.py:GRAPH_STATS``).
+trace, and /state.json adds the table, the programs' capture and replay
+counts (``utils/graphs.py:GRAPH_STATS``) and the MP2 frames the byte layer
+produced (``models/fused_fleet.py:MP2_STATS``).
 SIGINT stops serving at the next round boundary and ends as at the end of
 the input (stream lines, totals, --snapshot-out; exit code 0); a second
 SIGINT ends the process at once.
@@ -302,6 +303,7 @@ def _status_blob(fleet, args, pcm_out) -> bytes:
     state = {"streams": _stream_rows(fleet),
              "totals": _totals(fleet, args, pcm_out)}
     if args.profile_trace:
+        from ..models.fused_fleet import MP2_STATS
         from ..utils.graphs import GRAPH_STATS
         from ..utils.profiler import get_profiler
         # per-stage totals in microseconds, as webmon's /state.json has them
@@ -309,6 +311,7 @@ def _status_blob(fleet, args, pcm_out) -> bytes:
             k: {m: round(v, 1) for m, v in row.items()}
             for k, row in sorted(get_profiler().table().items())}
         state["graphs"] = dict(GRAPH_STATS)
+        state["mp2"] = dict(MP2_STATS)
     return json.dumps(state).encode()
 
 

@@ -42,6 +42,7 @@ collectives inside the graph, when they run over NCCL; over gloo it stays
 eager (``parallel/mesh.py:mesh_cuda_graph``).
 """
 
+import threading
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -56,6 +57,25 @@ from ..utils.graphs import CapturedProgram
 from ..utils.profiler import profile_scope
 from .demodulator import DemodCarry, OFDMDemodulator
 from .receiver import DabReceiver
+
+
+# Classic DAB's byte layer, counted always: "frames" (the logical frames of
+# the "mp2" subchannels handed out as MP2 frames), their "bytes", and
+# "synced", the frames whose first two bytes carry the MPEG audio sync and
+# MPEG-1 Layer II (0xFF, then b & 0xFE == 0xFC: either protection bit)
+MP2_STATS = {"frames": 0, "bytes": 0, "synced": 0}
+_MP2_LOCK = threading.Lock()
+
+
+def count_mp2_frames(heads: np.ndarray, nbytes: int):
+    """Add a round's MP2 frames to MP2_STATS: heads (..., 2) uint8, the
+    first two bytes of each frame, and nbytes, the bytes of all of them."""
+    synced = int(np.count_nonzero((heads[..., 0] == 0xFF)
+                                  & ((heads[..., 1] & 0xFE) == 0xFC)))
+    with _MP2_LOCK:
+        MP2_STATS["frames"] += heads.size // 2
+        MP2_STATS["bytes"] += nbytes
+        MP2_STATS["synced"] += synced
 
 
 def _cfg_from_db(sub) -> SubchannelConfig:
@@ -681,25 +701,37 @@ class FusedFleet:
                 [bytes(fib[:30]) for fib, o
                  in zip(fibs[b, f], ok[b, f]) if o])
 
-    def _other_kinds(self, b, s, msc_bytes):
-        """One round of an mp2 or packet subchannel -> its events."""
-        nb = self._nbytes[b][s]
+    def _mp2_events(self, pairs, msc_bytes):
+        """One round of the "mp2" subchannels `pairs` [(stream, sub)]:
+        their logical frames, each one MP2 frame, counted in MP2_STATS ->
+        {(stream, sub): events}."""
         C = msc_bytes.shape[2]
-        if self._kinds[b][s] == "mp2":
-            events = []
-            for c in range(C):
-                payload = msc_bytes[b, s, c][:nb].tobytes()
-                pcm = self._decode_mp2(b, s, payload) \
-                    if (b, s) in self._audio_enabled else None
-                events.append(("mp2", s, payload, pcm))
-            return events
-        # packet mode: collect data groups instead of letting the relay
-        # fire observers from a worker thread
+        with profile_scope("fleet/mp2_frames"):
+            bs = np.array(pairs)
+            count_mp2_frames(msc_bytes[bs[:, 0], bs[:, 1], :, :2],
+                             C * sum(self._nbytes[b][s] for b, s in pairs))
+            out = {}
+            for b, s in pairs:
+                nb = self._nbytes[b][s]
+                events = []
+                for row in msc_bytes[b, s, :, :nb]:
+                    payload = row.tobytes()
+                    pcm = self._decode_mp2(b, s, payload) \
+                        if (b, s) in self._audio_enabled else None
+                    events.append(("mp2", s, payload, pcm))
+                out[(b, s)] = events
+            return out
+
+    def _packet_events(self, b, s, msc_bytes):
+        """One round of a packet-mode subchannel -> its events."""
+        nb = self._nbytes[b][s]
+        # collect data groups instead of letting the relay fire observers
+        # from a worker thread
         proc = self._sfp[b][s]
         local = []
         proc.on_data_group.append(local.append)
         try:
-            for c in range(C):
+            for c in range(msc_bytes.shape[2]):
                 proc.process(msc_bytes[b, s, c][:nb].tobytes())
         finally:
             proc.on_data_group.remove(local.append)
@@ -757,9 +789,12 @@ class FusedFleet:
                     if res is not None:
                         ev_bs[(b, s)].append(
                             self._superframe_event(b, s, res))
+        mp2 = [bs for bs in ev_bs if self._kinds[bs[0]][bs[1]] == "mp2"]
+        if mp2:
+            ev_bs.update(self._mp2_events(mp2, msc_bytes))
         for b, s in ev_bs:
-            if self._kinds[b][s] != "audio":
-                ev_bs[(b, s)] = self._other_kinds(b, s, msc_bytes)
+            if self._kinds[b][s] not in ("audio", "mp2"):
+                ev_bs[(b, s)] = self._packet_events(b, s, msc_bytes)
         return [[e for s in range(self.S) for e in ev_bs[(b, s)]]
                 for b in range(self.N)]
 
@@ -770,9 +805,14 @@ class FusedFleet:
         stream-b state, so jobs parallelize across a thread pool."""
         events = []
         self._ingest_fibs(b, fibs, ok)
+        mp2 = [(b, s) for s in range(self.S) if self._kinds[b][s] == "mp2"]
+        mp2 = self._mp2_events(mp2, msc_bytes) if mp2 else {}
         for s in range(self.S):
+            if (b, s) in mp2:
+                events += mp2[(b, s)]
+                continue
             if self._kinds[b][s] != "audio":
-                events += self._other_kinds(b, s, msc_bytes)
+                events += self._packet_events(b, s, msc_bytes)
                 continue
             nb = self._nbytes[b][s]
             for c in range(msc_bytes.shape[2]):

@@ -384,6 +384,60 @@ def _digest(*xs) -> torch.Tensor:
                .to(torch.float32).sum() for x in xs)
 
 
+def common_trellis_steps(max_steps: int) -> int:
+    """The round's common trellis length, 6 + 24k steps and at least
+    max_steps: the data bits stay a whole number of bytes for the packing on
+    the device (and the step count divides by 2 and 3, which the JAX
+    package's radix-4 and radix-8 scans need; the same length keeps both
+    packages' path errors comparable)."""
+    return 6 + 24 * ((max_steps - 6 + 23) // 24)
+
+
+class MSCLanes:
+    """The subchannel lanes' padded depuncture and descramble, as the round
+    runs them. spec_grid holds rows of ``ops.viterbi.ViterbiSpec``, one row
+    shared by every stream or one a stream, a spec a subchannel; every lane
+    is padded to the common trellis of nb_steps steps. Each lane's
+    depuncture gather has a 3-state mask: 1 = transmitted symbol
+    (gathered), 0 = punctured (metric-neutral 0), -1 = trellis pad (a
+    strong zero bit keeps the survivor in state 0). The tensors are
+    (rows, S, 1, n) on `device`: they broadcast over the streams and the C
+    CIFs of a round."""
+
+    def __init__(self, spec_grid, nb_steps: int, device):
+        from ..ops import viterbi as vit
+        from ..ops.scrambler import prbs_bits
+        lead = (len(spec_grid), len(spec_grid[0]))
+        g_np = np.zeros(lead + (nb_steps * 4,), np.int64)
+        m_np = np.full(lead + (nb_steps * 4,), -1, np.int8)
+        prbs_np = np.zeros(lead + (nb_steps - 6,), np.int8)
+        for bi, row in enumerate(spec_grid):
+            for si, sp in enumerate(row):
+                n_mother = sp.nb_steps * 4
+                g_np[bi, si, :n_mother] = sp.gather_idx
+                m_np[bi, si, :n_mother] = sp.mask.astype(np.int8)
+                prbs_np[bi, si, :sp.nb_data_bits] = prbs_bits(sp.nb_data_bits)
+        self.gather = torch.as_tensor(g_np, device=device)[:, :, None, :]
+        self.transmitted = torch.as_tensor(m_np == 1,
+                                           device=device)[:, :, None, :]
+        self.fill = torch.as_tensor(np.where(m_np == 0, 0, vit.SOFT_LOW)
+                                    .astype(np.int8),
+                                    device=device)[:, :, None, :]
+        self.prbs = torch.as_tensor(prbs_np, device=device)[:, :, None, :]
+
+    def depuncture(self, deints: torch.Tensor) -> torch.Tensor:
+        """(B, S, C, nb_sub_bits) deinterleaved int8 soft bits -> (B, S, C,
+        nb_steps * 4) depunctured, padded lanes."""
+        B, S, C = deints.shape[:3]
+        d = torch.gather(deints, -1, self.gather.expand(B, S, C, -1))
+        return torch.where(self.transmitted, d, self.fill)
+
+    def descramble(self, bits: torch.Tensor) -> torch.Tensor:
+        """(B, S, C, nb_steps - 6) decoded bits -> the payload bits (energy
+        dispersal undone)."""
+        return bits ^ self.prbs
+
+
 def receiver_step(device, *args, **kw):
     """The whole receiver round on `device`: multichip_receiver_step
     without a mesh, which takes the same arguments after the device and
@@ -581,14 +635,10 @@ def multichip_receiver_step(mesh, transmission_mode: int = 2,
     # the padded widths are those of the whole mesh's subchannels, so that
     # every rank's lanes, history and outputs have one shape
     nb_sub_bits = max(c.nb_cif_bits for c in flat)   # padded common width
-    # common trellis length 6 + 24k: the data bits stay a whole number of
-    # bytes for the packing on the device (and the step count divides by 2
-    # and 3, which the JAX package's radix-4 and radix-8 scans need; the
-    # same length keeps both packages' path errors comparable)
     max_steps = max(sp.nb_steps for row in spec_grid for sp in row)
     if fuse_fic:
         max_steps = max(max_steps, fic_spec.nb_steps)
-    nb_steps = 6 + 24 * ((max_steps - 6 + 23) // 24)
+    nb_steps = common_trellis_steps(max_steps)
     nb_data = nb_steps - 6
     nb_data_list = [[sp.nb_data_bits for sp in row] for row in spec_grid]
     if not per_stream:
@@ -602,28 +652,7 @@ def multichip_receiver_step(mesh, transmission_mode: int = 2,
                  for row in (spec_grid[slice(*row_range)] if per_stream
                              else spec_grid)]
 
-    # padded depuncture plan, leading dims (S,) shared or (B, S) per stream:
-    # mask 1 = transmitted symbol (gathered), 0 = punctured (metric-neutral
-    # 0), -1 = trellis pad (strong zero bit keeps the survivor in state 0)
-    lead = (B, S) if per_stream else (S,)
-    g_np = np.zeros(lead + (nb_steps * 4,), np.int64)
-    m_np = np.full(lead + (nb_steps * 4,), -1, np.int8)
-    prbs_np = np.zeros(lead + (nb_data,), np.int8)
-    for bi, row in enumerate(spec_grid):
-        for si, sp in enumerate(row):
-            idx = (bi, si) if per_stream else (si,)
-            n_mother = sp.nb_steps * 4
-            g_np[idx][:n_mother] = sp.gather_idx
-            m_np[idx][:n_mother] = sp.mask.astype(np.int8)
-            prbs_np[idx][:sp.nb_data_bits] = prbs_bits(sp.nb_data_bits)
-    if not per_stream:
-        g_np, m_np, prbs_np = g_np[None], m_np[None], prbs_np[None]
-    # (B or 1, S, 1, n): broadcast over the streams and the C CIFs
-    gather_all = torch.as_tensor(g_np, device=device)[:, :, None, :]
-    transmitted = torch.as_tensor(m_np == 1, device=device)[:, :, None, :]
-    fill = torch.as_tensor(np.where(m_np == 0, 0, vit.SOFT_LOW)
-                           .astype(np.int8), device=device)[:, :, None, :]
-    msc_prbs = torch.as_tensor(prbs_np, device=device)[:, :, None, :]
+    lanes_plan = MSCLanes(spec_grid, nb_steps, device)
     fic_prbs = torch.as_tensor(prbs_bits(fic_spec.nb_data_bits)
                                .astype(np.int8), device=device)
     deint_idx = torch.as_tensor(make_gather_index(nb_sub_bits),
@@ -704,9 +733,7 @@ def multichip_receiver_step(mesh, transmission_mode: int = 2,
         # groups, in one contiguous int8 tensor as K1 takes it ----
         lanes = torch.empty((L_msc + (L_fic if fuse_fic else 0), nb_steps, 4),
                             dtype=torch.int8, device=device)
-        d = torch.gather(deints, -1,
-                         gather_all.expand(B, S, C, nb_steps * 4))
-        lanes[:L_msc] = torch.where(transmitted, d, fill).reshape(
+        lanes[:L_msc] = lanes_plan.depuncture(deints).reshape(
             L_msc, nb_steps, 4)
         if fuse_fic:
             lanes[L_msc:, :fic_spec.nb_steps] = vit.depuncture(
@@ -739,8 +766,8 @@ def multichip_receiver_step(mesh, transmission_mode: int = 2,
                         ^ fic_prbs).reshape(B, F, dab.nb_cifs,
                                             fic_spec.nb_data_bits)
             fic_err = err_full[L_msc:]
-        msc_bits = bits_full[:L_msc, :nb_data].reshape(B, S, C, nb_data) \
-            ^ msc_prbs
+        msc_bits = lanes_plan.descramble(
+            bits_full[:L_msc, :nb_data].reshape(B, S, C, nb_data))
         return carry, deint_hist, {
             "fib_bits": fib_bits, "msc_bits": msc_bits,
             "fic_err": fic_err, "msc_err": err_full[:L_msc],

@@ -234,7 +234,8 @@ def test_byte_layer_calls_follow_the_shapes(smoke, timed_runs):
     assert -(-calls["finish"] // (streams * subs)) <= calls["rs_decode"] \
         <= cifs * ROUNDS
     assert calls["fetch_wait"] == ROUNDS
-    assert "other_kinds" not in calls and "msc_dispatch" not in calls
+    assert "mp2_events" not in calls and "packet_events" not in calls \
+        and "msc_dispatch" not in calls
     split = smoke._round_stats(timers.split(skip=0))
     assert split["rounds"] == ROUNDS
     for part in ("check_fibs", "ingest_fibs", "push_frame", "fire"):

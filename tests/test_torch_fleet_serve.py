@@ -384,6 +384,7 @@ def test_profile_trace_writes_the_fleet_spans(caps, tmp_path, capsys,
     assert state["profiler"]["fleet/consume"]["count"] == rounds
     assert state["graphs"] == {"captures": 0, "replays": 0,
                                "capture_s": 0.0}           # eager: the CPU
+    assert set(state["mp2"]) == {"frames", "bytes", "synced"}
     assert state["totals"] == want[-1]
 
 
