@@ -1038,7 +1038,8 @@ class _FleetTimers:
 
 # The parts of the host byte layer: part -> (module, class, method). A part
 # is timed where it is called, the fleet's FIB CRC and FIG ingest, the
-# superframe processors (firecode and assembly, the AU split and CRC), the
+# superframe processors (firecode and assembly; the AU split and CRC in
+# finish_batch, which finish calls for its one superframe), the
 # RS decoder (FusedFleet builds its own inside _consume_batched, so the
 # class is wrapped), the other kinds' processors, the observers; and, for
 # the one-stream receiver, the dispatch of a decode group.
@@ -1047,7 +1048,7 @@ BYTE_LAYER_PARTS = {
     "ingest_fibs": ("models.fused_fleet", "FusedFleet", "_ingest_fibs"),
     "push_frame": ("dab.aac", "SuperframeProcessor", "push_frame"),
     "rs_decode": ("ops.rs", "ReedSolomonDecoder", "decode"),
-    "finish": ("dab.aac", "SuperframeProcessor", "finish"),
+    "finish": ("dab.aac", "SuperframeProcessor", "finish_batch"),
     "mp2_events": ("models.fused_fleet", "FusedFleet", "_mp2_events"),
     "packet_events": ("models.fused_fleet", "FusedFleet", "_packet_events"),
     "fire": ("models.fused_fleet", "FusedFleet", "_fire"),

@@ -12,17 +12,24 @@ generation (reference src/dab/audio/aac_audio_decoder.cpp:86-296) for
 bitstream export and codec initialisation.
 """
 
+import threading
 from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
 
-from ..ops.crc import crc16, crc16_ragged, firecode_crc16
+from ..ops.crc import (_crc16_table, crc16, crc16_batch, crc16_bounds,
+                       firecode_crc16)
 from ..ops.rs import dab_plus_rs, rs_encode
 
 TOTAL_DAB_FRAMES = 5
 DESYNC_MAX_COUNT = 10
 RS_MESSAGE, RS_DATA, RS_PARITY, RS_PAD = 120, 110, 10, 135
+
+# SuperframeProcessor.finish_batch's work, always counted: its calls, the
+# superframes it was handed, and those that returned access units
+SF_STATS = {"calls": 0, "superframes": 0, "finished": 0}
+_SF_LOCK = threading.Lock()
 
 
 @dataclass(frozen=True)
@@ -46,18 +53,64 @@ class SuperFrameHeader:
         return self.sampling_rate // 2 if self.sbr else self.sampling_rate
 
 
-def _read_au_starts(buf: bytes, n: int) -> List[int]:
-    """n 12-bit big-endian values packed at buf[0:ceil(12n/8)]."""
-    vals, acc, nbits = [], 0, 0
-    i = 0
-    while len(vals) < n:
-        acc = (acc << 8) | buf[i]
-        nbits += 8
-        i += 1
-        while nbits >= 12 and len(vals) < n:
-            vals.append((acc >> (nbits - 12)) & 0xFFF)
-            nbits -= 12
-    return vals
+def _parse_header(d: int) -> SuperFrameHeader:
+    """The superframe header of its audio-parameter byte (byte 2)."""
+    return SuperFrameHeader(
+        sampling_rate=48000 if (d >> 6) & 1 else 32000,
+        is_stereo=bool((d >> 4) & 1),
+        sbr=bool((d >> 5) & 1),
+        ps=bool((d >> 3) & 1),
+        mpeg_surround=d & 0b111)
+
+
+def _finish_tables():
+    """What finish_batch looks up, by a superframe's bytes 0..10.
+
+    Each byte's part, summed over the 11, of 9 numbers: 7 AU bounds (the
+    first AU's offset, after the 3 header bytes and the 12-bit starts of
+    the others, from the header byte 2; the 12-bit starts of AUs 1..5 from
+    bytes 3..10); the firecode check, whose bit b holds in a 4-bit field
+    at 4 * b (the firecode is linear: init 0, no final xor, so the two
+    firecode bytes xor the CRC of bytes 2..10 are the xor of one 16-bit
+    entry a byte, which the fields' parities give, all even where it
+    holds); and the count of nonzero bytes. By the header byte: its header,
+    and which bounds lie past the last AU's start (the payload's end goes
+    there). And the AU CRC16 over an AU with its own CRC bytes, one
+    constant where they agree, which no block shorter than 2 bytes gives.
+    """
+    headers = tuple(_parse_header(d) for d in range(256))
+    num = np.array([h.num_aus for h in headers])
+    v = np.arange(256)
+    check = np.zeros((11, 256), np.int64)
+    check[0], check[1] = v << 8, v
+    lut = _crc16_table(0x782F).astype(np.int64)
+    for i in range(2, 11):
+        reg = lut[v]                          # byte i, then 10 - i zeros
+        for _ in range(10 - i):
+            reg = ((reg << 8) & 0xFFFF) ^ lut[reg >> 8]
+        check[i] = reg
+    parts = np.zeros((11, 256, 9), np.int64)
+    parts[2, :, 0] = 3 + (12 * (num - 1) + 7) // 8
+    for k in range(1, 6):
+        j = 3 + 12 * (k - 1) // 8             # bytes j and j + 1
+        if k % 2:
+            parts[j, :, k] += v << 4
+            parts[j + 1, :, k] += v >> 4
+        else:
+            parts[j, :, k] += (v & 0xF) << 8
+            parts[j + 1, :, k] += v
+    for bit in range(16):
+        parts[:, :, 7] += ((check >> bit) & 1) << (4 * bit)
+    parts[:, 1:, 8] = 1
+    residue = int(crc16_batch(np.zeros((1, 2), np.uint8))[0])
+    return (headers, parts.reshape(-1, 9), np.arange(7) >= num[:, None],
+            residue)
+
+
+(_HEADERS, _PARTS, _PAST_AUS, _AU_RESIDUE) = _finish_tables()
+_PARTS_ROW = np.arange(11) * 256
+_EVEN = 0x1111111111111111          # the firecode fields' parity bits
+_RS_FAILED = 0xFFFF
 
 
 def _write_au_starts(vals: List[int]) -> bytes:
@@ -138,55 +191,118 @@ class SuperframeProcessor:
         """Post-RS half of process_frame: corrected (n_cols, 120) uint8
         codewords + per-codeword error counts (-1 = uncorrectable) from
         push_frame's superframe. Returns (header, [au_payloads]) or
-        None."""
-        if (nerr < 0).any():
-            self.stats["rs_errors"] += 1
-            self.desync_count += 1
-            return None
-        self.stats["rs_corrected_bytes"] += int(nerr.sum())
-        sf = np.ascontiguousarray(corrected.T).reshape(-1).tobytes()
-        n_cols = corrected.shape[0]
+        None. The batch of one of finish_batch."""
+        return SuperframeProcessor.finish_batch([self], corrected, nerr)[0]
 
-        if not self._firecode_ok(sf):
-            self.stats["firecode_errors"] += 1
-            self.desync_count += 1
-            return None
-        self.desync_count = 0
-        self.is_synced = True
+    @staticmethod
+    def finish_batch(processors, corrected: np.ndarray, nerr: np.ndarray):
+        """finish for K superframes at once, one from each of `processors`
+        (in order), whose codewords are concatenated in `corrected`
+        (sum of n_cols, 120) with their `nerr`. Returns one result a
+        processor, each what its own finish would return, with the same
+        counters and sync state. The numeric work (RS failures, the
+        transposed copy, firecode, header, AU starts, AU CRC16) is done
+        for the batch at once; the loop over superframes only updates
+        each processor and cuts its AU bytes. Called through the class."""
+        K = len(processors)
+        if not K:
+            with _SF_LOCK:
+                SF_STATS["calls"] += 1
+            return []
+        cols = [p.frame_bytes * TOTAL_DAB_FRAMES // RS_MESSAGE
+                for p in processors]
+        widths = sorted(set(cols))
+        rows = len(nerr)
+        if sum(cols) != rows:
+            raise ValueError(f"{rows} codewords for superframes of "
+                             f"{sum(cols)}")
+        order = None
+        if len(widths) == 1:
+            n = widths[0]
+            row0 = np.arange(0, rows, n)
+        else:
+            # a mixed batch is taken grouped by n_cols (a processor keeps
+            # one size, so each one's superframes keep their order)
+            n = np.array(cols)
+            order = np.argsort(n, kind="stable")
+            ends = np.cumsum(n)[order]
+            n = n[order]
+            row0 = np.cumsum(n) - n
+            index = np.repeat(ends - n - row0, n) + np.arange(rows)
+            corrected, nerr = corrected[index], nerr[index]
+            processors = [processors[k] for k in order.tolist()]
+            n = n[:, None]
+        # each superframe's corrected bytes, at or past _RS_FAILED where a
+        # codeword failed (-1, which the mask turns into _RS_FAILED; the
+        # others count at most 5 of the 65,535)
+        fixed = np.add.reduceat(nerr & _RS_FAILED, row0).tolist()
 
-        d = sf[2]
-        dac_rate = (d >> 6) & 1
-        header = SuperFrameHeader(
-            sampling_rate=48000 if dac_rate else 32000,
-            is_stereo=bool((d >> 4) & 1),
-            sbr=bool((d >> 5) & 1),
-            ps=bool((d >> 3) & 1),
-            mpeg_surround=d & 0b111)
+        # one transposed copy of the batch, a superframe at `base`
+        base = row0 * RS_MESSAGE
+        groups, r = [], 0
+        for w in widths:
+            m = cols.count(w) * w
+            groups.append(corrected[r:r + m].reshape(-1, w, RS_MESSAGE)
+                          .transpose(0, 2, 1).reshape(-1))
+            r += m
+        buf = groups[0] if order is None else np.concatenate(groups)
+        head = buf.reshape(K, -1)[:, :11] if order is None \
+            else buf[base[:, None] + np.arange(11)]
 
-        num_aus = header.num_aus
-        starts = [0] * (num_aus + 1)
-        au_start_bytes = -(-(12 * (num_aus - 1)) // 8)
-        starts[1:num_aus] = _read_au_starts(sf[3:], num_aus - 1)
-        starts[0] = 3 + au_start_bytes
-        starts[num_aus] = RS_DATA * n_cols
+        # by the header windows: each firecode check and nonzero count,
+        # and the AU bounds, the payload's end past the last AU's start
+        d = head[:, 2]
+        parts = _PARTS[head + _PARTS_ROW].sum(axis=1)
+        check = parts[:, 7:].tolist()
+        size = n * RS_MESSAGE
+        bounds = np.where(_PAST_AUS[d], n * RS_DATA, parts[:, :7])
+        # one CRC call over every AU of the batch, in place in `buf`, the
+        # last superframe's bounds first, so that the block from each
+        # superframe's last bound to the next one's first goes back and is
+        # empty; an AU is kept if it ends inside its superframe and its
+        # CRC holds
+        edges = np.empty(7 * K + 1, np.int64)
+        rowed = edges[:-1].reshape(K, 7)[::-1]
+        np.add(np.minimum(bounds, size), base[:, None], out=rowed)
+        edges[-1] = edges[-2]
+        crc = crc16_bounds(buf, edges).reshape(K, 7)[::-1]
+        good = ((crc[:, :-1] == _AU_RESIDUE) > (bounds[:, 1:] > size)).tolist()
+        data = buf.tobytes()
 
-        # per-AU CRC16, one ragged native call for the whole superframe
-        spans = []
-        for i in range(num_aus):
-            a, b = starts[i], starts[i + 1]
-            if b - a < 2 or b > len(sf):
-                self.stats["au_crc_errors"] += 1
-            else:
-                spans.append((a, b))
-        crcs = crc16_ragged([sf[a:b - 2] for a, b in spans])
-        aus = []
-        for (a, b), crc in zip(spans, crcs):
-            if ((sf[b - 2] << 8) | sf[b - 1]) == crc:
-                aus.append(sf[a:b - 2])
-            else:
-                self.stats["au_crc_errors"] += 1
-        self.stats["superframes"] += 1
-        return header, aus
+        # the only per-superframe work: each processor's state, in order,
+        # and its AUs cut from `data`
+        out = []
+        for p, h, fixed_k, (fire, nonzero), e, g in zip(
+                processors, d.tolist(), fixed, check, rowed.tolist(), good):
+            st = p.stats
+            if fixed_k >= _RS_FAILED:
+                st["rs_errors"] += 1
+                p.desync_count += 1
+                out.append(None)
+                continue
+            st["rs_corrected_bytes"] += fixed_k
+            if fire & _EVEN or not nonzero:
+                st["firecode_errors"] += 1
+                p.desync_count += 1
+                out.append(None)
+                continue
+            p.desync_count = 0
+            p.is_synced = True
+            header = _HEADERS[h]
+            aus = [data[x:y - 2] for x, y, ok in zip(e, e[1:], g) if ok]
+            st["au_crc_errors"] += header.num_aus - len(aus)
+            st["superframes"] += 1
+            out.append((header, aus))
+        with _SF_LOCK:
+            SF_STATS["calls"] += 1
+            SF_STATS["superframes"] += K
+            SF_STATS["finished"] += K - out.count(None)
+        if order is not None:
+            back = [None] * K
+            for k, res in zip(order.tolist(), out):
+                back[k] = res
+            out = back
+        return out
 
 
 class SuperframeEncoder:

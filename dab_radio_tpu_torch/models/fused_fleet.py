@@ -747,7 +747,8 @@ class FusedFleet:
         """Single-threaded consume with the round's RS decodes BATCHED:
         audio subchannels advance in frame lockstep across every
         (stream, sub), and whenever superframes complete, ONE
-        ReedSolomonDecoder.decode call corrects all of them together.
+        ReedSolomonDecoder.decode call corrects all of them together and
+        ONE SuperframeProcessor.finish_batch call finishes them.
         Byte-identical to the sequential path: each processor sees the
         exact same push/finish sequence, and events are re-assembled in
         the per-stream, subchannel-major order _stream_job produces. The
@@ -780,12 +781,9 @@ class FusedFleet:
                 cw = np.concatenate([d[2] for d in done], axis=0)
                 corrected, nerr = rs.decode(cw, device=self.device)
             with profile_scope("fleet/finish"):
-                pos = 0
-                for b, s, arr in done:
-                    n_cols = arr.shape[0]
-                    res = self._sfp[b][s].finish(
-                        corrected[pos:pos + n_cols], nerr[pos:pos + n_cols])
-                    pos += n_cols
+                results = SuperframeProcessor.finish_batch(
+                    [self._sfp[b][s] for b, s, _ in done], corrected, nerr)
+                for (b, s, _), res in zip(done, results):
                     if res is not None:
                         ev_bs[(b, s)].append(
                             self._superframe_event(b, s, res))

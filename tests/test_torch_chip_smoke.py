@@ -202,6 +202,25 @@ def _superframes(fleet):
 
 
 @pytest.mark.parametrize("workers", [0, 2], ids=["serial", "two_workers"])
+def test_sf_stats_count_the_fleets_superframes(capture, workers):
+    """SF_STATS counts the batched finish: a fleet hands it every
+    superframe it finishes (all it completes, on this capture), serially
+    in one call a CIF that completes superframes, so in at most one call an
+    RS decode; on the consume workers in one call a superframe."""
+    from dab_radio_tpu_torch.dab.aac import SF_STATS
+    from dab_radio_tpu_torch.ops.rs import RS_STATS
+    sf, rs = dict(SF_STATS), RS_STATS["calls"]
+    fleet = _timed_run(capture, workers=workers)[3]
+    done = {k: SF_STATS[k] - sf[k] for k in SF_STATS}
+    assert done["superframes"] == done["finished"] == _superframes(fleet) > 0
+    assert 0 < done["calls"] <= RS_STATS["calls"] - rs
+    if workers:
+        assert done["calls"] == done["superframes"]
+    else:
+        assert done["calls"] < done["superframes"]
+
+
+@pytest.mark.parametrize("workers", [0, 2], ids=["serial", "two_workers"])
 def test_byte_layer_timers_change_no_output(timed_runs, workers):
     """With the part timers on, the fleet decodes the same access units in
     the same order, with the same counters and valid FIBs: serial, and on
@@ -217,10 +236,11 @@ def test_byte_layer_timers_change_no_output(timed_runs, workers):
 def test_byte_layer_calls_follow_the_shapes(smoke, timed_runs):
     """Each part's calls a round are what the round's shapes give: one FIB
     check, one FIG ingest and one observer replay a stream, one push_frame a
-    stream, subchannel and CIF (4 frames of one CIF in mode II), one finish a
-    completed superframe and at most one batched RS decode a CIF; no other
-    kind, no group dispatch; the fetch waited for once a round. The parts on
-    the consuming thread fit inside _consume, and the rest is "other"."""
+    stream, subchannel and CIF (4 frames of one CIF in mode II), at most one
+    batched RS decode a CIF and one batched finish for each of them (a CIF
+    that completes superframes); no other kind, no group dispatch; the
+    fetch waited for once a round. The parts on the consuming thread fit
+    inside _consume, and the rest is "other"."""
     _, timed, timers = timed_runs[0]
     fleet = timed[3]
     streams, subs = fleet.N, fleet.S
@@ -230,8 +250,8 @@ def test_byte_layer_calls_follow_the_shapes(smoke, timed_runs):
     assert calls["push_frame"] == streams * subs * cifs * ROUNDS
     assert calls["check_fibs"] == ROUNDS
     assert calls["ingest_fibs"] == calls["fire"] == streams * ROUNDS
-    assert calls["finish"] == _superframes(fleet) > 0
-    assert -(-calls["finish"] // (streams * subs)) <= calls["rs_decode"] \
+    assert calls["finish"] == calls["rs_decode"] > 0
+    assert -(-_superframes(fleet) // (streams * subs)) <= calls["rs_decode"] \
         <= cifs * ROUNDS
     assert calls["fetch_wait"] == ROUNDS
     assert "mp2_events" not in calls and "packet_events" not in calls \
@@ -253,9 +273,10 @@ def test_byte_layer_thread_sums_under_consume_workers(smoke, timed_runs,
     """On two consume workers each part's time is kept per thread: the
     rounds' sums (consuming thread and the others) add up to the threads'
     sums, the superframe work runs on the workers only, and a timed call
-    made inside another one is not counted: process_frame's RS decode is one
-    a superframe, and a push_frame that decodes a codeword itself still
-    counts once, its inner decode not at all."""
+    made inside another one is not counted: process_frame's RS decode and
+    finish (a batch of one) are one a superframe, and a push_frame that
+    decodes a codeword itself still counts once, its inner decode not at
+    all."""
     _, timed, timers = timed_runs[2]
     fleet = timed[3]
     calls = timers.calls()
