@@ -1,6 +1,7 @@
 """Serve N ensembles through the fused one-round-per-call receiver, on a
 CUDA GPU or the CPU (port of ``dab_radio_tpu/apps/fleet_serve.py``, same
-flags, stdout JSON lines and stderr notes).
+flags, stdout JSON lines and stderr notes, less the JAX CLI's thread pool
+for the byte layer, which here runs on the serving thread).
 
 The multi-ensemble analog of radio_cli: each input stream (its own raw-IQ
 file, or one file shared by every stream with --shared-input) is decoded
@@ -323,16 +324,14 @@ def _build_fleet(args, device, N, discover):
     if args.resume:
         with open(args.resume, "rb") as f:
             snap = pickle.load(f)
-        fleet = FusedFleet.from_snapshot(
-            snap["fleet"], device, consume_workers=args.consume_workers)
+        fleet = FusedFleet.from_snapshot(snap["fleet"], device)
         if fleet.N != N:
             raise ValueError(f"snapshot has {fleet.N} streams, the inputs "
                              f"give {N}")
         return fleet, snap
     common = dict(transmission_mode=args.transmission_mode,
                   frames_per_step=args.frames_per_step, device=device,
-                  viterbi=args.viterbi, chainback=args.chainback,
-                  consume_workers=args.consume_workers)
+                  viterbi=args.viterbi, chainback=args.chainback)
     if args.discover:
         found = discover()
         rxs = found if isinstance(found, list) else [found]
@@ -676,10 +675,6 @@ def main(argv=None):
                          "rounds are dropped and restaged whenever a "
                          "drift correction or desync re-acquisition "
                          "moves the read grid.")
-    ap.add_argument("--consume-workers", type=int, default=0,
-                    help=">1 shards the host byte layer across worker "
-                         "threads (one job per stream; observers still "
-                         "fire in stream order)")
     ap.add_argument("--max-rounds", type=int, default=0,
                     help="stop after this many (additional, when resuming) "
                          "rounds")

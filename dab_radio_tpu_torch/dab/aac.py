@@ -12,7 +12,6 @@ generation (reference src/dab/audio/aac_audio_decoder.cpp:86-296) for
 bitstream export and codec initialisation.
 """
 
-import threading
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -29,7 +28,6 @@ RS_MESSAGE, RS_DATA, RS_PARITY, RS_PAD = 120, 110, 10, 135
 # SuperframeProcessor.finish_batch's work, always counted: its calls, the
 # superframes it was handed, and those that returned access units
 SF_STATS = {"calls": 0, "superframes": 0, "finished": 0}
-_SF_LOCK = threading.Lock()
 
 
 @dataclass(frozen=True)
@@ -206,8 +204,7 @@ class SuperframeProcessor:
         each processor and cuts its AU bytes. Called through the class."""
         K = len(processors)
         if not K:
-            with _SF_LOCK:
-                SF_STATS["calls"] += 1
+            SF_STATS["calls"] += 1
             return []
         cols = [p.frame_bytes * TOTAL_DAB_FRAMES // RS_MESSAGE
                 for p in processors]
@@ -293,10 +290,9 @@ class SuperframeProcessor:
             st["au_crc_errors"] += header.num_aus - len(aus)
             st["superframes"] += 1
             out.append((header, aus))
-        with _SF_LOCK:
-            SF_STATS["calls"] += 1
-            SF_STATS["superframes"] += K
-            SF_STATS["finished"] += K - out.count(None)
+        SF_STATS["calls"] += 1
+        SF_STATS["superframes"] += K
+        SF_STATS["finished"] += K - out.count(None)
         if order is not None:
             back = [None] * K
             for k, res in zip(order.tolist(), out):

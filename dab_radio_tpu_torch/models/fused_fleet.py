@@ -42,7 +42,6 @@ collectives inside the graph, when they run over NCCL; over gloo it stays
 eager (``parallel/mesh.py:mesh_cuda_graph``).
 """
 
-import threading
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -64,7 +63,6 @@ from .receiver import DabReceiver
 # "synced", the frames whose first two bytes carry the MPEG audio sync and
 # MPEG-1 Layer II (0xFF, then b & 0xFE == 0xFC: either protection bit)
 MP2_STATS = {"frames": 0, "bytes": 0, "synced": 0}
-_MP2_LOCK = threading.Lock()
 
 
 def count_mp2_frames(heads: np.ndarray, nbytes: int):
@@ -72,10 +70,9 @@ def count_mp2_frames(heads: np.ndarray, nbytes: int):
     first two bytes of each frame, and nbytes, the bytes of all of them."""
     synced = int(np.count_nonzero((heads[..., 0] == 0xFF)
                                   & ((heads[..., 1] & 0xFE) == 0xFC)))
-    with _MP2_LOCK:
-        MP2_STATS["frames"] += heads.size // 2
-        MP2_STATS["bytes"] += nbytes
-        MP2_STATS["synced"] += synced
+    MP2_STATS["frames"] += heads.size // 2
+    MP2_STATS["bytes"] += nbytes
+    MP2_STATS["synced"] += synced
 
 
 def _cfg_from_db(sub) -> SubchannelConfig:
@@ -134,6 +131,13 @@ class FusedFleet:
                  chainback: str = "sequential",
                  viterbi_branch: str = "matmul", fuse_fic: bool = True,
                  consume_workers: int = 0, mesh=None, cuda_graph=None):
+        """consume_workers is kept for the benchmark's configs, which pass
+        it, and goes when they drop the key: 0 and 1 both mean the calling
+        thread, which runs the byte layer; any other value is refused."""
+        if consume_workers not in (0, 1):
+            raise ValueError(
+                f"consume_workers={consume_workers}: the byte layer runs on "
+                "the calling thread; pass 0 or 1")
         from ..parallel.mesh import (mesh_cuda_graph,
                                      multichip_receiver_step, receiver_step,
                                      track_collectives)
@@ -148,15 +152,6 @@ class FusedFleet:
         # serving default ON: the FIC lanes ride the MSC Viterbi decode, one
         # launch a round instead of two (parallel/mesh.py, fuse_fic)
         self._fuse_fic = fuse_fic
-        # >1 shards the host byte layer across worker threads, one job per
-        # stream (streams touch disjoint state); observers still fire on the
-        # calling thread in stream order, see _consume. Under CPython's
-        # interpreter lock this overlaps only the ctypes codec calls.
-        self._consume_workers = consume_workers
-        self._pool = None
-        if consume_workers > 1:
-            from concurrent.futures import ThreadPoolExecutor
-            self._pool = ThreadPoolExecutor(consume_workers)
         # per-stream heterogeneity: pass a list of per-stream cfg rows and
         # each stream decodes its OWN ensemble layout in the same round
         per_stream = bool(subchannel_cfgs) and \
@@ -264,7 +259,7 @@ class FusedFleet:
                     row.append(None)          # frames fire directly
                 else:
                     _, addr, fec = k
-                    # data groups reach observers via _stream_job's
+                    # data groups reach observers via _packet_events'
                     # collector + _fire; the proc's own list stays free
                     # for direct subscribers
                     row.append(PacketProcessor(addr or 0,
@@ -364,8 +359,7 @@ class FusedFleet:
                     np.concatenate([h[1] for h in health]), health[0][2]))
 
     @classmethod
-    def from_snapshot(cls, blob: bytes, device, mesh=None,
-                      consume_workers: int = 0) -> "FusedFleet":
+    def from_snapshot(cls, blob: bytes, device, mesh=None) -> "FusedFleet":
         """Rebuild a serving fleet from snapshot() on `device` (the device
         is not part of the snapshot), on one device or, with `mesh`, on
         every rank of it. The resumed decode is byte-identical to an
@@ -382,8 +376,7 @@ class FusedFleet:
                     subchannel_kinds=d["kinds"], viterbi=d["viterbi"],
                     chainback=d["chainback"],
                     viterbi_branch=d["viterbi_branch"],
-                    fuse_fic=d["fuse_fic"], consume_workers=consume_workers,
-                    mesh=mesh)
+                    fuse_fic=d["fuse_fic"], mesh=mesh)
         n_time = 1 if mesh is None else mesh.shape["time"]
         carry0, hist0 = fleet._init_state
         want = [(fleet.nb_streams, n_time)] * len(carry0) + [
@@ -406,7 +399,7 @@ class FusedFleet:
         for row in fleet._sfp:
             for p in row:
                 # observer lists are stripped by __getstate__; restore the
-                # empty list the collector in _stream_job appends to
+                # empty list the collector in _packet_events appends to
                 if p is not None and hasattr(p, "on_data_group"):
                     p.on_data_group = []
         fleet.total_rounds = d["counters"][0]
@@ -666,34 +659,15 @@ class FusedFleet:
         return fibs, ok
 
     def _consume(self, fib_bytes: np.ndarray, msc_bytes: np.ndarray):
+        """One round's byte layer: the FIB check, the byte work of every
+        stream (_consume_batched), then the observers (_fire), stream by
+        stream, on the calling thread."""
         with profile_scope("fleet/consume"):
             fibs, ok = self._check_fibs(fib_bytes)
-            if self._pool is None:
-                per_stream = self._consume_batched(fibs, ok, msc_bytes)
-                with profile_scope("fleet/fire"):
-                    for b, events in enumerate(per_stream):
-                        self._fire(b, events)
-                return
-            # streams are independent (disjoint receivers / processors /
-            # decoders), so the heavy byte work runs in the pool; events
-            # fire here, serialized in stream order, so observers keep
-            # the single-threaded contract
-            futs = [self._pool.submit(self._stream_job, b, fibs, ok,
-                                      msc_bytes) for b in range(self.N)]
-            # every job runs to completion (its stream's decode state has
-            # advanced); fire all successful streams' events in order so
-            # observers never lose a round another stream's failure
-            # already consumed, THEN surface the first error; the span
-            # holds the wait for the workers too
-            first_err = None
+            per_stream = self._consume_batched(fibs, ok, msc_bytes)
             with profile_scope("fleet/fire"):
-                for b, fut in enumerate(futs):
-                    try:
-                        self._fire(b, fut.result())
-                    except Exception as e:            # noqa: BLE001
-                        first_err = first_err or e
-            if first_err is not None:
-                raise first_err
+                for b, events in enumerate(per_stream):
+                    self._fire(b, events)
 
     def _ingest_fibs(self, b, fibs, ok):
         for f in range(fibs.shape[1]):
@@ -725,8 +699,8 @@ class FusedFleet:
     def _packet_events(self, b, s, msc_bytes):
         """One round of a packet-mode subchannel -> its events."""
         nb = self._nbytes[b][s]
-        # collect data groups instead of letting the relay fire observers
-        # from a worker thread
+        # collect the data groups: observers fire after the round's byte
+        # work (_fire), not from inside the relay
         proc = self._sfp[b][s]
         local = []
         proc.on_data_group.append(local.append)
@@ -744,19 +718,17 @@ class FusedFleet:
         return ("sf", s, header, aus, pcm)
 
     def _consume_batched(self, fibs, ok, msc_bytes):
-        """Single-threaded consume with the round's RS decodes BATCHED:
-        audio subchannels advance in frame lockstep across every
-        (stream, sub), and whenever superframes complete, ONE
-        ReedSolomonDecoder.decode call corrects all of them together and
-        ONE SuperframeProcessor.finish_batch call finishes them.
-        Byte-identical to the sequential path: each processor sees the
-        exact same push/finish sequence, and events are re-assembled in
-        the per-stream, subchannel-major order _stream_job produces. The
-        batch is a CIF of the whole fleet (2,304 codewords for 16
-        ensembles of 18 DAB+ subchannels), so its syndromes are computed
-        on the fleet's device; Berlekamp-Massey and Forney stay on the
-        host for the rows they gate. Returns a list of per-stream event
-        lists for _fire."""
+        """The round's byte work with its RS decodes BATCHED: audio
+        subchannels advance in frame lockstep across every (stream, sub),
+        and whenever superframes complete, ONE ReedSolomonDecoder.decode
+        call corrects all of them together and ONE
+        SuperframeProcessor.finish_batch call finishes them. Each
+        processor sees the push/finish sequence of its own frames. The
+        batch is a CIF of the whole fleet (2,304 codewords for 16 ensembles
+        of 18 DAB+ subchannels), so its syndromes are computed on the
+        fleet's device; Berlekamp-Massey and Forney stay on the host for
+        the rows they gate. Returns a list of per-stream event lists,
+        subchannel-major, for _fire."""
         from ..dab.aac import RS_MESSAGE
         C = msc_bytes.shape[2]
         for b in range(self.N):
@@ -764,7 +736,8 @@ class FusedFleet:
         ev_bs = {(b, s): [] for b in range(self.N) for s in range(self.S)}
         audio = [bs for bs in ev_bs if self._kinds[bs[0]][bs[1]] == "audio"]
         rs = dab_plus_rs()
-        for c in range(C):
+        # a fleet without DAB+ subchannels opens none of their spans
+        for c in range(C if audio else 0):
             done = []                     # (b, s, (n_cols, 120) codewords)
             with profile_scope("fleet/push_frames"):
                 for b, s in audio:
@@ -795,30 +768,6 @@ class FusedFleet:
                 ev_bs[(b, s)] = self._packet_events(b, s, msc_bytes)
         return [[e for s in range(self.S) for e in ev_bs[(b, s)]]
                 for b in range(self.N)]
-
-    def _stream_job(self, b, fibs, ok, msc_bytes):
-        """All of stream b's byte-layer work for one round (FIB ingest,
-        superframe/packet/MP2 processing, optional audio decode) with NO
-        observer calls: events are returned for _fire. Touches only
-        stream-b state, so jobs parallelize across a thread pool."""
-        events = []
-        self._ingest_fibs(b, fibs, ok)
-        mp2 = [(b, s) for s in range(self.S) if self._kinds[b][s] == "mp2"]
-        mp2 = self._mp2_events(mp2, msc_bytes) if mp2 else {}
-        for s in range(self.S):
-            if (b, s) in mp2:
-                events += mp2[(b, s)]
-                continue
-            if self._kinds[b][s] != "audio":
-                events += self._packet_events(b, s, msc_bytes)
-                continue
-            nb = self._nbytes[b][s]
-            for c in range(msc_bytes.shape[2]):
-                res = self._sfp[b][s].process_frame(
-                    msc_bytes[b, s, c][:nb].tobytes())
-                if res is not None:
-                    events.append(self._superframe_event(b, s, res))
-        return events
 
     def _fire(self, b, events):
         """Replay one stream's collected events through the observers and
@@ -859,8 +808,8 @@ class FusedFleet:
         self._audio_enabled.add((stream - self.rows[0], sub))
 
     def _decode_mp2(self, b, s, frame: bytes):
-        """-> [(pcm, rate, nch), ...] for _fire (no observer calls here:
-        this may run on a consume worker thread)."""
+        """-> [(pcm, rate, nch), ...] for _fire, which makes the observer
+        calls."""
         from ..host.codecs import MP2Decoder
         dec = self._decoders.get((b, s))
         if dec is None:

@@ -28,7 +28,6 @@ passes one; the others keep the host gather.
 """
 
 import functools
-import threading
 
 import numpy as np
 
@@ -36,7 +35,6 @@ _GF_POLY = 0x11D
 
 RS_STATS = {"calls": 0, "codewords": 0, "device_codewords": 0,
             "gated_rows": 0, "failed_rows": 0}
-_STATS_LOCK = threading.Lock()
 
 
 @functools.lru_cache(maxsize=1)
@@ -142,13 +140,12 @@ class ReedSolomonDecoder:
             cw2[bad] = fixed
             nb_errors[bad] = nerr
             failed = int((nerr < 0).sum())
-        with _STATS_LOCK:             # consume workers decode in threads
-            RS_STATS["calls"] += 1
-            RS_STATS["codewords"] += cw2.shape[0]
-            if device is not None:
-                RS_STATS["device_codewords"] += cw2.shape[0]
-            RS_STATS["gated_rows"] += bad.size
-            RS_STATS["failed_rows"] += failed
+        RS_STATS["calls"] += 1
+        RS_STATS["codewords"] += cw2.shape[0]
+        if device is not None:
+            RS_STATS["device_codewords"] += cw2.shape[0]
+        RS_STATS["gated_rows"] += bad.size
+        RS_STATS["failed_rows"] += failed
         return cw2.reshape(*batch_shape, self.n), \
             nb_errors.reshape(batch_shape)
 

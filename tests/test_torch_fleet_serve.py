@@ -217,9 +217,8 @@ def test_snapshot_and_resume(caps, tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [["--prefetch", "2"],
-                                   ["--consume-workers", "2"],
                                    ["--prefetch", "1", "--max-rounds", "3"]],
-                         ids=["prefetch", "workers", "prefetch_cut"])
+                         ids=["prefetch", "prefetch_cut"])
 def test_options_do_not_change_the_output(caps, capsys, monkeypatch, extra):
     argv = ["-i", *caps.paths, "--subchannels", LAYOUT, *BASE]
     if "--max-rounds" in extra:

@@ -322,10 +322,9 @@ def test_from_receiver_one_and_a_list(streams, two_ensembles):
         == [(0xD000, "Own 0"), (0xD001, "Own 1")]
 
 
-def _mixed_capture():
-    """A mode-I ensemble of a DAB+ service, an MP2 service and a packet-mode
-    service carrying a MOT object: (services, u8 (1, bytes))."""
-    services = [
+def _mixed_services():
+    """A DAB+ service, an MP2 service and a packet-mode service."""
+    return [
         ServiceSpec(0xA001, 1, "AAC Service", JCfg(0, 12, **EEP3A),
                     kind="dab+"),
         ServiceSpec(0xA002, 2, "MP2 Service",
@@ -333,6 +332,12 @@ def _mixed_capture():
         ServiceSpec(0xA003, 3, "Data Service", JCfg(96, 48, **EEP3A),
                     kind="packet", scid=0x10, packet_address=2),
     ]
+
+
+def _mixed_capture():
+    """A mode-I ensemble of _mixed_services, the packet-mode service
+    carrying a MOT object: (services, the object's body, u8 (1, bytes))."""
+    services = _mixed_services()
     tx = EnsembleTransmitter(1, services=services)
     tx.enable_tone_audio()
     rng = np.random.default_rng(7)
@@ -356,33 +361,150 @@ def mixed():
     return _mixed_capture()
 
 
-@pytest.mark.parametrize("workers", [0, 2], ids=["serial", "two_workers"])
-def test_mixed_kinds_match_jax(mixed, workers):
-    """DAB+ superframes, MP2 frames and packet-mode data groups through one
-    round, serial and with consume_workers=2: the same events in the same
-    order as the JAX fleet's serial consume."""
-    services, body, u8 = mixed
-    cfgs = [s.cfg for s in services]
-    kinds = ["audio", "mp2", ("packet", 2, 0)]
+MIXED_KINDS = ["audio", "mp2", ("packet", 2, 0)]
 
-    def run(fleet):
-        mot = []
-        fleet._sfp[0][2].mot.on_entity.append(mot.append)
-        out = full_run(fleet, u8)
-        return out, [(m.body, m.header.content_name) for m in mot]
-    want, jmot = run(JFleet(1, cfgs, 1, 4, subchannel_kinds=kinds))
-    got, tmot = run(TFleet(1, tcfgs(cfgs), 1, 4, device=CPU,
-                           subchannel_kinds=kinds, consume_workers=workers))
+
+def mixed_run(fleet, u8, defer=True):
+    """full_run of a fleet of the mixed ensemble, with the MOT objects that
+    each stream's packet subchannel assembled."""
+    mot = [[] for _ in range(fleet.N)]
+    for b in range(fleet.N):
+        fleet._sfp[b][2].mot.on_entity.append(mot[b].append)
+    out = full_run(fleet, u8, defer)
+    return out, [[(m.body, m.header.content_name) for m in row]
+                 for row in mot]
+
+
+def mixed_fleet(Fleet, streams, **kw):
+    cfgs = [s.cfg for s in _mixed_services()]
+    if Fleet is TFleet:
+        kw.update(device=CPU)
+        cfgs = tcfgs(cfgs)
+    return Fleet(streams, cfgs, 1, 4, subchannel_kinds=MIXED_KINDS, **kw)
+
+
+@pytest.mark.parametrize("defer", [False, True], ids=["direct", "deferred"])
+@pytest.mark.parametrize("nb", [1, 2], ids=["one_stream", "two_streams"])
+def test_mixed_kinds_match_jax(mixed, nb, defer):
+    """DAB+ superframes, MP2 frames and packet-mode data groups through the
+    one byte layer, on 1 and 2 streams, fetched at once and a round late:
+    the JAX fleet's events, in its order (per stream, subchannel-major,
+    stream by stream), its MOT objects and its summary."""
+    _, body, u8 = mixed
+    u8 = np.repeat(u8, nb, axis=0)
+    want, jmot = mixed_run(mixed_fleet(JFleet, nb), u8, defer)
+    got, tmot = mixed_run(mixed_fleet(TFleet, nb), u8, defer)
     assert got == want
-    assert tmot == jmot and tmot[0] == (body, "file.bin")
+    assert tmot == jmot and all(row[0] == (body, "file.bin") for row in tmot)
     names = [e[0] for e in got["events"]]
-    assert names.count("mp2") == 80 and "au" in names and "dg" in names
-    assert got["summary"]["mp2_frames"] == 80
+    assert names.count("mp2") == 80 * nb and "au" in names and "dg" in names
+    assert got["summary"]["mp2_frames"] == 80 * nb
     assert got["summary"]["data_groups"] == names.count("dg")
 
 
-def test_consume_workers_equal_serial(streams, jax_runs):
-    assert full_run(make_tfleet(consume_workers=2), streams) \
+@pytest.mark.parametrize("defer", [False, True], ids=["direct", "deferred"])
+def test_observers_fire_after_the_rounds_byte_work_on_the_calling_thread(
+        mixed, defer):
+    """The observer contract of the one byte layer: no observer runs while
+    a round's byte work does; every one runs on the thread that called
+    process_round; and a round's events go stream by stream, each
+    stream's subchannel-major."""
+    import threading
+    fleet = mixed_fleet(TFleet, 2)
+    work, log, inside = fleet._consume_batched, [], []
+
+    def marked(*args):
+        inside.append(True)
+        try:
+            return work(*args)
+        finally:
+            inside.pop()
+            log.append("round")
+    fleet._consume_batched = marked
+
+    def seen(b, s, *_):
+        log.append((b, s, not inside, threading.get_ident()))
+    for observers in (fleet.on_access_unit, fleet.on_mp2_frame,
+                      fleet.on_data_group):
+        observers.append(seen)
+    drive(fleet, np.repeat(mixed[2], 2, axis=0),
+          range(nb_rounds(fleet, mixed[2])), defer)
+    rounds, events = [], None
+    for entry in log:
+        if entry == "round":
+            events = []
+            rounds.append(events)
+        else:
+            events.append(entry)
+    assert log[0] == "round" and len(rounds) == fleet.materialized_rounds
+    me = threading.get_ident()
+    assert all(ok and ident == me for r in rounds for *_, ok, ident in r)
+    for r in rounds:
+        order = [(b, s) for b, s, *_ in r]
+        assert order == sorted(order)
+    assert {(b, s) for r in rounds for b, s, *_ in r} \
+        == {(b, s) for b in range(2) for s in range(3)}
+
+
+@pytest.fixture(scope="module")
+def mixed_counters(mixed):
+    """The mixed capture on 2 streams through the port's fleet: the fleet,
+    its MP2 frames as its observers got them, and the increase of each
+    byte-layer counter over its run."""
+    from dab_radio_tpu_torch.dab.aac import SF_STATS
+    from dab_radio_tpu_torch.models.fused_fleet import MP2_STATS
+    from dab_radio_tpu_torch.ops.rs import RS_STATS
+    counters = {"RS_STATS": RS_STATS, "SF_STATS": SF_STATS,
+                "MP2_STATS": MP2_STATS}
+    before = {k: dict(v) for k, v in counters.items()}
+    fleet = mixed_fleet(TFleet, 2)
+    events = full_run(fleet, np.repeat(mixed[2], 2, axis=0))["events"]
+    mp2 = [e[3] for e in events if e[0] == "mp2"]
+    return fleet, mp2, {k: {f: v[f] - before[k][f] for f in v}
+                        for k, v in counters.items()}
+
+
+@pytest.mark.parametrize("name", ["RS_STATS", "SF_STATS", "MP2_STATS"])
+def test_byte_layer_counters_equal_what_the_fleet_reports(mixed_counters,
+                                                          name):
+    """Each counter of the byte layer, written on the calling thread, grows
+    by what the fleet itself reports: RS_STATS by the codewords of the
+    superframes its processors completed (all on the device stage, none
+    failed at 20 dB), SF_STATS by the superframes they finished, MP2_STATS
+    by summary()'s MP2 frames, their bytes, and those of them that start
+    with the MPEG-1 Layer II sync."""
+    fleet, mp2, used = mixed_counters
+    procs = [fleet._sfp[b][0] for b in range(fleet.N)]
+    done = sum(p.stats["superframes"] for p in procs)
+    assert done > 0 and not any(p.stats["rs_errors"] for p in procs)
+    got = used[name]
+    if name == "RS_STATS":
+        per_sf = procs[0].frame_bytes * 5 // 120
+        assert got["codewords"] == got["device_codewords"] == done * per_sf
+        assert got["failed_rows"] == 0 and got["calls"] > 0
+    elif name == "SF_STATS":
+        assert got["superframes"] == got["finished"] == done
+        assert 0 < got["calls"] <= used["RS_STATS"]["calls"]
+    else:
+        synced = sum(f[0] == 0xFF and f[1] & 0xFE == 0xFC for f in mp2)
+        assert got["frames"] == fleet.summary()["mp2_frames"] == len(mp2) \
+            == 2 * 80
+        assert got["bytes"] == sum(map(len, mp2))
+        assert got["synced"] == synced > 0
+
+
+@pytest.mark.parametrize("workers", [0, 1, 4])
+def test_consume_workers_keyword_is_kept_for_the_benchmark(streams,
+                                                           jax_runs,
+                                                           workers):
+    """consume_workers 0 and 1 both run the byte layer on the calling
+    thread and decode what the default fleet decodes; any other value is
+    refused, naming that thread."""
+    if workers > 1:
+        with pytest.raises(ValueError, match="calling thread"):
+            make_tfleet(consume_workers=workers)
+        return
+    assert full_run(make_tfleet(consume_workers=workers), streams) \
         == jax_runs[True]
 
 
@@ -470,17 +592,12 @@ def test_batched_byte_layer_takes_rs_syndromes_on_the_device(streams,
                                                              jax_runs):
     """_consume_batched decodes each CIF's superframes with their
     syndromes on the fleet's device: with errors injected into two
-    streams' superframes, its events are byte-identical to the sequential
-    path's (_stream_job, the host syndromes a superframe at a time), the
-    corrected subchannel gives the clean run's AUs, and every codeword of
-    its decodes went through the device stage."""
+    streams' superframes, its events are byte-identical to the JAX
+    fleet's under the same errors, the corrected subchannel gives the
+    clean run's AUs, and every codeword of its decodes went through the
+    device stage."""
     from dab_radio_tpu_torch.ops.rs import RS_STATS
-    seq = _corrupting(make_tfleet())
-    seq._consume_batched = lambda fibs, ok, msc: [
-        seq._stream_job(b, fibs, ok, msc) for b in range(seq.N)]
-    before = dict(RS_STATS)
-    want = full_run(seq, streams)
-    assert RS_STATS["device_codewords"] == before["device_codewords"]
+    want = full_run(_corrupting(JFleet(2, AUDIO_CFGS, MODE, K)), streams)
 
     before = dict(RS_STATS)
     got = full_run(_corrupting(make_tfleet()), streams)

@@ -36,7 +36,7 @@ ONLY_JAX = {"dab.aac": {"_read_au_starts", "crc16_ragged"},
             "ops.crc": {"crc16_ragged"}}
 ONLY_PORT = {"host.native": {"native_status"},
              # the batched superframe finish: its counter and tables
-             "dab.aac": {"SF_STATS", "_SF_LOCK", "threading", "_parse_header",
+             "dab.aac": {"SF_STATS", "_parse_header",
                          "_finish_tables", "_HEADERS", "_PARTS", "_PAST_AUS",
                          "_AU_RESIDUE", "_PARTS_ROW", "_EVEN", "_RS_FAILED",
                          "crc16_bounds", "crc16_batch", "_crc16_table"},
@@ -44,8 +44,8 @@ ONLY_PORT = {"host.native": {"native_status"},
                          "ctypes"},
              "host.io": {"profile_scope"},       # the span io/convert
              # the decoder's counters and its device stage's constants
-             "ops.rs": {"RS_STATS", "_STATS_LOCK", "threading",
-                        "syndrome_constants", "_SYNDROME_CONSTANTS"}}
+             "ops.rs": {"RS_STATS", "syndrome_constants",
+                        "_SYNDROME_CONSTANTS"}}
 
 
 def both(name):

@@ -15,7 +15,6 @@ model at 15 dB (20 dB for the discovery).
 
 import os
 import sys
-import threading
 import types
 
 import numpy as np
@@ -24,12 +23,11 @@ import torch
 
 from dab_radio_tpu_torch.apps import fleet_serve as tserve
 from dab_radio_tpu_torch.host.native import iq_quantize_u8
-from dab_radio_tpu_torch.models import fused_fleet
 from dab_radio_tpu_torch.models.channel import ChannelModel
 from dab_radio_tpu_torch.models.fused_fleet import MP2_STATS, FusedFleet
 from dab_radio_tpu_torch.models.transmitter import (EnsembleTransmitter,
                                                     ServiceSpec)
-from dab_radio_tpu_torch.params import SubchannelConfig
+from dab_radio_tpu_torch.params import SubchannelConfig, get_dab_params
 from dab_radio_tpu_torch.utils.profiler import get_profiler
 
 torch.set_num_threads(1)
@@ -122,8 +120,8 @@ def test_discover_derives_mp2_at_uep_row_35():
     u8 = _u8(ChannelModel(cfo_hz=1500.0, snr_db=20.0, seed=5).apply(iq))
     args = types.SimpleNamespace(
         resume=None, transmission_mode=MODE, frames_per_step=K,
-        viterbi="exact", chainback="sequential", consume_workers=0,
-        discover=True, subchannels=None)
+        viterbi="exact", chainback="sequential", discover=True,
+        subchannels=None)
     found, _ = tserve._build_fleet(
         args, CPU, 2, lambda: tserve._discover(u8, MODE, CPU))
     cfgs, kinds = tserve.parse_subchannels("0:96:UEP35:mp2,96:96:UEP35:mp2")
@@ -156,7 +154,7 @@ def test_fleet_mp2_frames_equal_the_reference_and_the_frames_sent(mixed):
     _, bits, lost = ref.run(caps, tracks, [(b, f) for b in range(2)
                                           for f in range(FRAMES)])
     assert lost == [0, 0]
-    dab = fused_fleet.get_dab_params(MODE)
+    dab = get_dab_params(MODE)
     sub = msc.Subchannel(UEP35.start_address, UEP35.length, uep_index=35)
     for b in range(2):
         cifs = np.stack([bits[(b, f)][dab.nb_fic_bits:]
@@ -186,8 +184,8 @@ def profiler():
 
 
 def test_mp2_span_and_counter(mixed, profiler):
-    """fleet/mp2_frames opens once a round in _consume_batched, once a
-    stream and round with consume workers, never for a DAB+-only fleet;
+    """fleet/mp2_frames opens once a round in _consume_batched, never for a
+    DAB+-only fleet;
     MP2_STATS counts streams x MP2 subchannels x CIFs a round, all synced
     on clean traffic once the deinterleaver is full, and one fewer with a
     header byte altered in the round's bytes."""
@@ -223,11 +221,6 @@ def test_mp2_span_and_counter(mixed, profiler):
     assert MP2_STATS["synced"] - warm["synced"] == frames - 1
 
     profiler.reset()
-    workers = make_fleet(consume_workers=2)
-    serve(workers, mixed.u8, rounds=2, defer=False)
-    assert _span_count("fleet/mp2_frames") == 2 * 2   # streams x rounds
-
-    profiler.reset()
     before = dict(MP2_STATS)
     dabplus = FusedFleet(2, [EEP3A], transmission_mode=MODE,
                          frames_per_step=K, device=CPU)
@@ -235,29 +228,3 @@ def test_mp2_span_and_counter(mixed, profiler):
     assert _span_count("fleet/mp2_frames") == 0
     assert _span_count("fleet/push_frames") == 2 * C
     assert MP2_STATS == before
-
-
-def test_mp2_counter_loses_no_update_across_threads():
-    """count_mp2_frames from more threads than cores, with a short switch
-    interval: no update is lost."""
-    heads = np.array([[0xFF, 0xFD], [0xFF, 0xFC], [0xFF, 0xFF], [0, 0xFD]],
-                     np.uint8)
-    before = dict(MP2_STATS)
-    n_threads, calls = 4 * (os.cpu_count() or 1), 200
-    interval = sys.getswitchinterval()
-    sys.setswitchinterval(1e-6)
-    try:
-        threads = [threading.Thread(
-            target=lambda: [fused_fleet.count_mp2_frames(heads, 1536)
-                            for _ in range(calls)]) for _ in range(n_threads)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=60)
-        assert not any(t.is_alive() for t in threads)
-    finally:
-        sys.setswitchinterval(interval)
-    n = n_threads * calls
-    assert MP2_STATS["frames"] - before["frames"] == 4 * n
-    assert MP2_STATS["synced"] - before["synced"] == 2 * n
-    assert MP2_STATS["bytes"] - before["bytes"] == 1536 * n

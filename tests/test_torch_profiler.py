@@ -160,11 +160,16 @@ def rounds():
     return np.stack([u8, np.roll(u8, 2 * 2 * fs)])
 
 
-def test_fleet_spans_at_their_counts(rounds, monkeypatch):
-    """A 2-stream, 2-service FusedFleet on the CPU with the profiler on:
-    fleet/consume, fleet/fire and fleet/fetch_wait once a round,
-    fleet/push_frames once a CIF, fleet/rs_decode and fleet/finish once a
-    CIF that completes superframes (one batched RS call each)."""
+@pytest.mark.parametrize("kinds", [None, ["mp2", "mp2"], ["audio", "mp2"]],
+                         ids=["audio", "mp2", "mixed"])
+def test_fleet_spans_at_their_counts(rounds, monkeypatch, kinds):
+    """A 2-stream, 2-subchannel FusedFleet on the CPU with the profiler on,
+    for each kind of byte layer (DAB+ superframes, MP2 frames, both):
+    fleet/consume, fleet/fire and fleet/fetch_wait once a round; with an
+    audio subchannel fleet/push_frames once a CIF, fleet/rs_decode and
+    fleet/finish once a CIF that completes superframes (one batched RS call
+    each); with an MP2 subchannel fleet/mp2_frames once a round. A span of
+    a kind the fleet lacks never opens."""
     rs_calls = []
     decode = ReedSolomonDecoder.decode
 
@@ -172,9 +177,13 @@ def test_fleet_spans_at_their_counts(rounds, monkeypatch):
         rs_calls.append(1)
         return decode(self, *a, **kw)
     monkeypatch.setattr(ReedSolomonDecoder, "decode", counted)
-    fleet = FusedFleet(2, CFGS, MODE, FRAMES_PER_ROUND, device="cpu")
-    aus = []
-    fleet.on_access_unit.append(lambda *a: aus.append(a))
+    fleet = FusedFleet(2, CFGS, MODE, FRAMES_PER_ROUND, device="cpu",
+                       subchannel_kinds=kinds)
+    audio = "audio" in (kinds or ["audio"])
+    mp2 = "mp2" in (kinds or [])
+    got = []
+    fleet.on_access_unit.append(lambda *a: got.append(a))
+    fleet.on_mp2_frame.append(lambda *a: got.append(a))
     chunk, tb = 2 * fleet.round_samples, fleet.tail_bytes
     prof = get_profiler()
     was = prof.enabled
@@ -192,15 +201,21 @@ def test_fleet_spans_at_their_counts(rounds, monkeypatch):
         prof.reset()
     count = {k: v["count"] for k, v in table.items()}
     cifs = FRAMES_PER_ROUND * get_dab_params(MODE).nb_cifs
-    assert fleet.materialized_rounds == ROUNDS and aus
+    assert fleet.materialized_rounds == ROUNDS and got
     assert count["fleet/consume"] == count["fleet/fire"] == ROUNDS
     assert count["fleet/fetch_wait"] == ROUNDS
-    assert count["fleet/push_frames"] == cifs * ROUNDS
-    assert count["fleet/rs_decode"] == count["fleet/finish"] \
-        == len(rs_calls) > 0
+    assert count.get("fleet/mp2_frames", 0) == (ROUNDS if mp2 else 0)
+    if audio:
+        assert count["fleet/push_frames"] == cifs * ROUNDS
+        assert count["fleet/rs_decode"] == count["fleet/finish"] \
+            == len(rs_calls) > 0
+    else:
+        assert not {"fleet/push_frames", "fleet/rs_decode",
+                    "fleet/finish"} & set(count) and not rs_calls
     # the round's parts lie inside the round's byte layer
     inside = sum(table[k]["total_us"] for k in (
-        "fleet/push_frames", "fleet/rs_decode", "fleet/finish", "fleet/fire"))
+        "fleet/push_frames", "fleet/rs_decode", "fleet/finish",
+        "fleet/mp2_frames", "fleet/fire") if k in table)
     assert inside <= table["fleet/consume"]["total_us"]
     assert "graph/stage" not in count          # eager on the CPU: no staging
 

@@ -2,7 +2,8 @@
 SuperframeProcessor.finish_batch) against the JAX package's finish, one
 superframe a call: every result, header, access unit, counter and sync
 state the same after every call, on batches of 1 to 288 superframes with
-mixed sizes and headers and each way a superframe can fail after RS."""
+mixed sizes and headers and each way a superframe can fail after RS; and
+its counter SF_STATS over a serving fleet's run."""
 
 import dataclasses
 
@@ -10,9 +11,15 @@ import numpy as np
 import pytest
 
 from dab_radio_tpu.dab import aac as jax_aac
+from dab_radio_tpu.host.native import iq_quantize_u8
+from dab_radio_tpu.models.channel import ChannelModel
+from dab_radio_tpu.models.transmitter import EnsembleTransmitter, ServiceSpec
+from dab_radio_tpu.params import SubchannelConfig as JCfg
+from dab_radio_tpu_torch.convert import subchannel_config_from_jax
 from dab_radio_tpu_torch.dab import aac
+from dab_radio_tpu_torch.models.fused_fleet import FusedFleet
 from dab_radio_tpu_torch.ops import crc
-from dab_radio_tpu_torch.ops.rs import dab_plus_rs
+from dab_radio_tpu_torch.ops.rs import RS_STATS, dab_plus_rs
 
 # frame bytes of 48 CU and 24 CU at EEP 3-A (64 and 32 kbit/s): 8 and 4
 # codewords a superframe; and 28 codewords, whose AU starts pass 2048
@@ -207,3 +214,55 @@ def test_no_block_shorter_than_its_crc_gives_the_au_residue():
         au = rng.integers(0, 256, n).astype(np.uint8).tobytes()
         assert crc.crc16(au + crc.crc16(au).to_bytes(2, "big")) == \
             aac._AU_RESIDUE
+
+
+# a small serving fleet: 2 streams of one two-service mode-II ensemble (one
+# CIF a frame), 4 frames a round, 5 rounds
+MODE, FRAMES_PER_ROUND, ROUNDS = 2, 4, 5
+FLEET_CFGS = [JCfg(0, 12, False, eep_type="A", eep_prot_level=2),
+              JCfg(12, 12, False, eep_type="A", eep_prot_level=2)]
+
+
+def _fleet_capture():
+    """(2, bytes) u8: the JAX transmitter's ensemble through two channels."""
+    header = jax_aac.SuperFrameHeader(48000, True, True, False, 0)
+    services = [ServiceSpec(0xF200 + i, i + 1, f"Fleet {i}", cfg,
+                            superframe_header=header)
+                for i, cfg in enumerate(FLEET_CFGS)]
+    tx = EnsembleTransmitter(MODE, ensemble_id=0xC0FE,
+                             ensemble_label="Fleet", services=services)
+    for s in services:
+        rng = np.random.default_rng(s.service_id)
+        tx.set_au_source(s.subchannel_id, lambda cap, num, rng=rng: [
+            rng.integers(0, 256, n).astype(np.uint8).tobytes()
+            for n in [cap // num] * (num - 1)
+            + [cap - cap // num * (num - 1)]])
+    iq = tx.generate(FRAMES_PER_ROUND * ROUNDS + 1)
+    rows = []
+    for seed, cfo in ((1, 1100.0), (2, -700.0)):
+        x = ChannelModel(cfo_hz=cfo, snr_db=18.0, seed=seed).apply(iq)
+        rows.append(np.frombuffer(iq_quantize_u8(
+            (x / np.abs(x).max() * 0.5).astype(np.complex64)), np.uint8))
+    return np.stack(rows)
+
+
+def test_sf_stats_count_the_fleets_superframes():
+    """SF_STATS counts the batched finish: a FusedFleet hands it every
+    superframe it finishes (all it completes, on this capture), in one call
+    a CIF that completes superframes, so in at most one call an RS decode
+    and in fewer calls than superframes."""
+    u8 = _fleet_capture()
+    fleet = FusedFleet(2, [subchannel_config_from_jax(c) for c in FLEET_CFGS],
+                       MODE, FRAMES_PER_ROUND, device="cpu")
+    sf, rs = dict(aac.SF_STATS), RS_STATS["calls"]
+    chunk, tb = 2 * fleet.round_samples, fleet.tail_bytes
+    for r in range(ROUNDS):
+        fleet.process_round(
+            u8[:, r * chunk:(r + 1) * chunk], defer_fetch=True,
+            tail_u8=u8[:, (r + 1) * chunk:(r + 1) * chunk + tb])
+    fleet.flush()
+    done = {k: aac.SF_STATS[k] - sf[k] for k in sf}
+    finished = sum(p.stats["superframes"] for row in fleet._sfp for p in row)
+    assert done["superframes"] == done["finished"] == finished > 0
+    assert 0 < done["calls"] <= RS_STATS["calls"] - rs
+    assert done["calls"] < done["superframes"]
