@@ -25,9 +25,12 @@ TOTAL_DAB_FRAMES = 5
 DESYNC_MAX_COUNT = 10
 RS_MESSAGE, RS_DATA, RS_PARITY, RS_PAD = 120, 110, 10, 135
 
-# SuperframeProcessor.finish_batch's work, always counted: its calls, the
-# superframes it was handed, and those that returned access units
-SF_STATS = {"calls": 0, "superframes": 0, "finished": 0}
+# The superframe layer's batched work, always counted: finish_batch's calls,
+# the superframes it was handed, and those that returned access units;
+# SuperframeIntake's steps, the frames it took into its buffers, and those
+# it firecode-checked for rows out of sync
+SF_STATS = {"calls": 0, "superframes": 0, "finished": 0,
+            "intake_calls": 0, "intake_frames": 0, "hunted": 0}
 
 
 @dataclass(frozen=True)
@@ -109,6 +112,12 @@ def _finish_tables():
 _PARTS_ROW = np.arange(11) * 256
 _EVEN = 0x1111111111111111          # the firecode fields' parity bits
 _RS_FAILED = 0xFFFF
+
+
+def _firecode_holds(parts: np.ndarray) -> np.ndarray:
+    """_firecode_ok of header windows from their _PARTS sums (H, 9) ->
+    (H,) bool: the firecode holds and the window is not all zero."""
+    return ((parts[:, 7] & _EVEN) == 0) & (parts[:, 8] > 0)
 
 
 def _write_au_starts(vals: List[int]) -> bytes:
@@ -250,7 +259,7 @@ class SuperframeProcessor:
         # and the AU bounds, the payload's end past the last AU's start
         d = head[:, 2]
         parts = _PARTS[head + _PARTS_ROW].sum(axis=1)
-        check = parts[:, 7:].tolist()
+        fire_ok = _firecode_holds(parts).tolist()
         size = n * RS_MESSAGE
         bounds = np.where(_PAST_AUS[d], n * RS_DATA, parts[:, :7])
         # one CRC call over every AU of the batch, in place in `buf`, the
@@ -269,8 +278,8 @@ class SuperframeProcessor:
         # the only per-superframe work: each processor's state, in order,
         # and its AUs cut from `data`
         out = []
-        for p, h, fixed_k, (fire, nonzero), e, g in zip(
-                processors, d.tolist(), fixed, check, rowed.tolist(), good):
+        for p, h, fixed_k, fire_ok_k, e, g in zip(
+                processors, d.tolist(), fixed, fire_ok, rowed.tolist(), good):
             st = p.stats
             if fixed_k >= _RS_FAILED:
                 st["rs_errors"] += 1
@@ -278,7 +287,7 @@ class SuperframeProcessor:
                 out.append(None)
                 continue
             st["rs_corrected_bytes"] += fixed_k
-            if fire & _EVEN or not nonzero:
+            if not fire_ok_k:
                 st["firecode_errors"] += 1
                 p.desync_count += 1
                 out.append(None)
@@ -299,6 +308,216 @@ class SuperframeProcessor:
                 back[k] = res
             out = back
         return out
+
+
+_NO_ROWS = np.zeros(0, np.int64)
+
+
+class _Rows:
+    """The rows of a SuperframeIntake of one frame width: a ring of
+    TOTAL_DAB_FRAMES frames a row, how many each holds, and each row's
+    sync state as arrays."""
+
+    def __init__(self, index, where, processors, nb):
+        R = len(index)
+        self.index = np.asarray(index, np.int64)    # rows of the intake
+        self.where = where              # their place in a round's array
+        self.lead = None                # the leading shape `where` was seen in
+        self.procs = processors
+        self.nb = nb
+        self.n_cols = nb * TOTAL_DAB_FRAMES // RS_MESSAGE
+        if self.n_cols * RS_MESSAGE != nb * TOTAL_DAB_FRAMES:
+            raise ValueError(f"frames of {nb} bytes do not make a superframe "
+                             f"of whole codewords")
+        self.ring = np.zeros((R, TOTAL_DAB_FRAMES, nb), np.uint8)
+        self.count = np.zeros(R, np.int64)
+        for i, p in enumerate(processors):
+            if p.frame_bytes != nb:
+                # push_frame's rule for a frame of another width
+                p.frame_bytes = nb
+                p.buffer.clear()
+                p.is_synced = False
+            for k, frame in enumerate(p.buffer):
+                self.ring[i, k] = np.frombuffer(frame, np.uint8)
+            self.count[i] = len(p.buffer)
+        self.synced = np.zeros(R, bool)
+        self.desync = np.zeros(R, np.int64)
+        self.read_back(np.arange(R))
+        self.frames = None              # the round's frames, (R, C, nb)
+        self.done = _NO_ROWS            # the last step's completed rows
+
+    def load(self, round_bytes):
+        lead = round_bytes.shape[:len(self.where)]
+        if lead != self.lead:
+            # rows that are every row of the array, in order, read it in
+            # place; others are gathered
+            self.lead = lead
+            self.whole = len(self.index) == np.prod(lead) and bool(
+                (np.ravel_multi_index(self.where, lead)
+                 == np.arange(len(self.index))).all())
+        if self.whole:
+            self.frames = round_bytes.reshape(
+                len(self.index), *round_bytes.shape[len(lead):])
+        else:
+            self.frames = round_bytes[(*self.where, slice(None))]
+        self.frames = self.frames[:, :, :self.nb]
+
+    def read_back(self, rows):
+        """Take the sync state of the processors of `rows` (indices into
+        this group), which finish_batch changes."""
+        procs = self.procs if len(rows) == len(self.procs) \
+            else [self.procs[i] for i in rows.tolist()]
+        self.synced[rows] = [p.is_synced for p in procs]
+        self.desync[rows] = [p.desync_count for p in procs]
+        self._settle()
+
+    def _settle(self):
+        # steady: every row in sync, none at the desync limit, all at the
+        # same slot; a step then only takes the frames
+        self.steady = bool(self.synced.all()) and \
+            int(self.desync.max()) < DESYNC_MAX_COUNT and \
+            bool((self.count == self.count[0]).all())
+
+    def step(self, c):
+        """push_frame of CIF c for every row -> the rows (indices into
+        this group) whose superframes it completed, and their codewords
+        (rows, n_cols, 120)."""
+        frames = self.frames[:, c]
+        steady = self.steady
+        lost = _NO_ROWS
+        if not steady:
+            stale = self.desync >= DESYNC_MAX_COUNT
+            if stale.any():
+                for i in np.flatnonzero(stale).tolist():
+                    p = self.procs[i]
+                    p.desync_count = 0
+                    p.is_synced = False
+                self.desync[stale] = 0
+                self.synced[stale] = False
+            hunt = ~self.synced & (self.count == 0)
+            if hunt.any():
+                hunt = np.flatnonzero(hunt)
+                SF_STATS["hunted"] += len(hunt)
+                parts = _PARTS[frames[hunt, :11] + _PARTS_ROW].sum(axis=1)
+                lost = hunt[~_firecode_holds(parts)]
+                for i in lost.tolist():
+                    self.procs[i].stats["firecode_errors"] += 1
+        k = int(self.count[0])
+        if steady or not len(lost) and (self.count == k).all():
+            # every row takes its frame into the same slot
+            taken = len(frames)
+            self.ring[:, k] = frames
+            self.count += 1
+            full = k + 1 == TOTAL_DAB_FRAMES
+            done = np.arange(taken) if full else _NO_ROWS
+        else:
+            take = np.ones(len(frames), bool)
+            take[lost] = False
+            rows = np.flatnonzero(take)
+            taken = len(rows)
+            self.ring[rows, self.count[rows]] = frames[rows]
+            self.count[rows] += 1
+            done = np.flatnonzero(self.count == TOTAL_DAB_FRAMES)
+            full = len(done) == len(frames)
+        SF_STATS["intake_frames"] += taken
+        self.done = done
+        if len(done):
+            self.count[done] = 0
+        if not steady:
+            self._settle()
+        if not len(done):
+            return done, None
+        # a superframe's bytes are (120, n_cols), codeword j its column j:
+        # a transposed view, which the RS decode copies once
+        ring = self.ring if full else self.ring[done]
+        cw = ring.reshape(-1, RS_MESSAGE, self.n_cols)
+        return done, cw.transpose(0, 2, 1)
+
+    def write_back(self):
+        for p, frames, n, synced, desync in zip(
+                self.procs, self.ring, self.count.tolist(),
+                self.synced.tolist(), self.desync.tolist()):
+            p.buffer = [f.tobytes() for f in frames[:n]]
+            p.is_synced = synced
+            p.desync_count = desync
+
+
+class SuperframeIntake:
+    """push_frame for many processors at once: a serving fleet's DAB+
+    subchannels, one row each, take a CIF's frames in one array step.
+
+    Each row keeps what push_frame keeps (its buffered frames, is_synced,
+    desync_count) as arrays, grouped by frame width: a ring of
+    TOTAL_DAB_FRAMES frames a row. A step applies push_frame's rules to
+    every row in the same order: a row at DESYNC_MAX_COUNT resets and is out
+    of sync; a row out of sync with nothing buffered takes a frame only if
+    its firecode holds (else firecode_errors counts it on the row's
+    processor); the frame goes into the ring; rows with TOTAL_DAB_FRAMES
+    frames are the superframes completed, handed out as one codeword matrix
+    ready for the RS decode. The caller finishes them with
+    SuperframeProcessor.finish_batch and then calls read_back(), since
+    finish_batch changes the processors' sync state.
+
+    While the intake holds them, the processors' `buffer` lists are stale:
+    write_back() puts the buffered frames there (before a snapshot). A
+    processor taken in has its row's frame width, as after its first
+    push_frame. The tuner's one frame at a time stays with push_frame."""
+
+    def __init__(self, processors, frame_bytes, at):
+        """processors, and the frame bytes of each, one a row; `at`, the
+        rows' places in the arrays that load() takes: index arrays, one an
+        axis before the frames'."""
+        groups = {}
+        for i, nb in enumerate(frame_bytes):
+            groups.setdefault(nb, []).append(i)
+        self.groups = [
+            _Rows(rows, tuple(np.asarray(a)[rows] for a in at),
+                  [processors[i] for i in rows], nb)
+            for nb, rows in sorted(groups.items())]
+
+    def load(self, round_bytes):
+        """Take a round's frames, one gather a frame width: round_bytes
+        (..., C, W) uint8 holds C frames of each row where `at` points, in
+        the first bytes of W (at least the row's frame width)."""
+        for g in self.groups:
+            g.load(round_bytes)
+
+    def step(self, c):
+        """push_frame of frame c of the loaded round for every row ->
+        (rows, processors, codewords): the rows whose superframes the step
+        completed (grouped by frame width, in row order within a width),
+        their processors, and their codewords in the same order, (..., 120)
+        (a view of the ring where one width completed: valid until the next
+        step), as ReedSolomonDecoder.decode takes them. rows is empty and
+        codewords None if none completed."""
+        rows, procs, cws = [], [], []
+        for g in self.groups:
+            done, cw = g.step(c)
+            if len(done):
+                rows.append(g.index[done])
+                procs += g.procs if len(done) == len(g.procs) \
+                    else [g.procs[i] for i in done.tolist()]
+                cws.append(cw)
+        SF_STATS["intake_calls"] += 1
+        if not rows:
+            return _NO_ROWS, [], None
+        if len(rows) == 1:
+            return rows[0], procs, cws[0]
+        return np.concatenate(rows), procs, np.concatenate(
+            [cw.reshape(-1, RS_MESSAGE) for cw in cws])
+
+    def read_back(self):
+        """Take back the sync state of the last step's completed rows from
+        their processors, after finish_batch."""
+        for g in self.groups:
+            if len(g.done):
+                g.read_back(g.done)
+
+    def write_back(self):
+        """Put each row's buffered frames and sync state into its
+        processor, as push_frame would have left them."""
+        for g in self.groups:
+            g.write_back()
 
 
 class SuperframeEncoder:

@@ -47,7 +47,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from ..dab.aac import SuperframeProcessor
+from ..dab.aac import RS_MESSAGE, SuperframeIntake, SuperframeProcessor
 from ..ops.crc import crc16_check_batch
 from ..ops.rs import dab_plus_rs, syndrome_constants
 from ..params import SubchannelConfig, get_dab_params, get_ofdm_params
@@ -215,24 +215,18 @@ class FusedFleet:
                            subchannel_kinds[self.rows[0]:self.rows[1]]]
         else:
             self._kinds = [kind_row(subchannel_kinds)] * self.N
-        self.receivers = [DabReceiver(transmission_mode, device=self.device)
-                          for _ in range(self.N)]
+        nbl = self.step.msc_nb_data_bits
+        self._nbytes = [[n // 8 for n in
+                         (nbl[b] if self.step.per_stream else nbl)]
+                        for b in range(*self.rows)]
         self.on_access_unit: List[Callable] = []
         self.on_audio_data: List[Callable] = []   # (stream, sub, pcm, rate, nch)
         self.on_data_group: List[Callable] = []   # (stream, sub, DataGroupResult)
         self.on_mp2_frame: List[Callable] = []    # (stream, sub, frame bytes)
         self._audio_enabled = set()               # (stream, sub) pairs
         self._decoders = {}                       # (stream, sub) -> decoder
-        self._sfp = self._make_procs()
+        self.reset_byte_layer()
         self.total_rounds = 0
-        self.total_aus = 0
-        self.total_data_groups = 0
-        self.total_mp2_frames = 0
-
-        nbl = self.step.msc_nb_data_bits
-        self._nbytes = [[n // 8 for n in
-                         (nbl[b] if self.step.per_stream else nbl)]
-                        for b in range(*self.rows)]
         self._pending: Optional[_Fetch] = None
         self._pinned = [None, None]    # the fetches' host tensors, in turns
         self.last_frame_offsets = np.zeros(self.N, np.int64)
@@ -266,6 +260,34 @@ class FusedFleet:
                                                use_fec=(fec == 1)))
             procs.append(row)
         return procs
+
+    def _make_intake(self) -> Optional[SuperframeIntake]:
+        """The frame intake over the DAB+ subchannels' processors, in
+        (stream, sub) order; None where the fleet has none."""
+        audio = [(b, s) for b in range(self.N) for s in range(self.S)
+                 if self._kinds[b][s] == "audio"]
+        self._audio_rows = audio              # the intake's rows
+        if not audio:
+            return None
+        bs = np.array(audio)
+        return SuperframeIntake([self._sfp[b][s] for b, s in audio],
+                                [self._nbytes[b][s] for b, s in audio],
+                                at=(bs[:, 0], bs[:, 1]))
+
+    def reset_byte_layer(self):
+        """A fresh host byte layer: every stream's receiver, the
+        per-(stream, sub) processors and the intake over the DAB+ ones, no
+        audio decoder, and the counters of what it delivered at 0."""
+        self.receivers = [DabReceiver(self._mode, device=self.device)
+                          for _ in range(self.N)]
+        self._sfp = self._make_procs()
+        self._intake = self._make_intake()
+        for dec in self._decoders.values():
+            dec.close()
+        self._decoders = {}
+        self.total_aus = 0
+        self.total_data_groups = 0
+        self.total_mp2_frames = 0
 
     # ---- the device state, as numpy ----
 
@@ -311,6 +333,8 @@ class FusedFleet:
         nb_sub_bits), and the byte layer of every ens group's leader."""
         import pickle
         self.flush()
+        if self._intake is not None:
+            self._intake.write_back()
         carry, hist = self.state()
         # processor callback lists (the packet relays are closures) are
         # excluded by PacketProcessor/MOTProcessor.__getstate__
@@ -402,6 +426,7 @@ class FusedFleet:
                 # empty list the collector in _packet_events appends to
                 if p is not None and hasattr(p, "on_data_group"):
                     p.on_data_group = []
+        fleet._intake = fleet._make_intake()
         fleet.total_rounds = d["counters"][0]
         if mesh is None or mesh.rank == 0:
             (fleet.total_aus, fleet.total_data_groups,
@@ -418,20 +443,12 @@ class FusedFleet:
         registered callbacks. Used to retune a serving fleet to a new
         capture or frequency."""
         self.program.load_state(self._init_state)
-        self.receivers = [DabReceiver(self._mode, device=self.device)
-                          for _ in range(self.N)]
-        self._sfp = self._make_procs()
-        for dec in self._decoders.values():
-            dec.close()
-        self._decoders = {}
+        self.reset_byte_layer()
         self._pending = None
         self.last_frame_offsets = np.zeros(self.N, np.int64)
         self.last_fib_ok = np.zeros(self.N, np.int64)
         self.materialized_rounds = 0
         self.total_rounds = 0
-        self.total_aus = 0
-        self.total_data_groups = 0
-        self.total_mp2_frames = 0
 
     @classmethod
     def from_receiver(cls, receiver, nb_streams: int = None,
@@ -718,46 +735,41 @@ class FusedFleet:
         return ("sf", s, header, aus, pcm)
 
     def _consume_batched(self, fibs, ok, msc_bytes):
-        """The round's byte work with its RS decodes BATCHED: audio
-        subchannels advance in frame lockstep across every (stream, sub),
-        and whenever superframes complete, ONE ReedSolomonDecoder.decode
-        call corrects all of them together and ONE
-        SuperframeProcessor.finish_batch call finishes them. Each
+        """The round's byte work, a CIF of every DAB+ subchannel at once:
+        the intake takes the CIF's frames in one array step (push_frame's
+        rules, SuperframeIntake), and whenever superframes complete, ONE
+        ReedSolomonDecoder.decode call corrects all of them together and
+        ONE SuperframeProcessor.finish_batch call finishes them. Each
         processor sees the push/finish sequence of its own frames. The
         batch is a CIF of the whole fleet (2,304 codewords for 16 ensembles
         of 18 DAB+ subchannels), so its syndromes are computed on the
         fleet's device; Berlekamp-Massey and Forney stay on the host for
         the rows they gate. Returns a list of per-stream event lists,
         subchannel-major, for _fire."""
-        from ..dab.aac import RS_MESSAGE
         C = msc_bytes.shape[2]
         for b in range(self.N):
             self._ingest_fibs(b, fibs, ok)
         ev_bs = {(b, s): [] for b in range(self.N) for s in range(self.S)}
-        audio = [bs for bs in ev_bs if self._kinds[bs[0]][bs[1]] == "audio"]
+        intake = self._intake
         rs = dab_plus_rs()
         # a fleet without DAB+ subchannels opens none of their spans
-        for c in range(C if audio else 0):
-            done = []                     # (b, s, (n_cols, 120) codewords)
+        for c in range(C if intake is not None else 0):
             with profile_scope("fleet/push_frames"):
-                for b, s in audio:
-                    nb = self._nbytes[b][s]
-                    sf = self._sfp[b][s].push_frame(
-                        msc_bytes[b, s, c][:nb].tobytes())
-                    if sf is not None:
-                        arr = np.frombuffer(sf, np.uint8).reshape(
-                            RS_MESSAGE, len(sf) // RS_MESSAGE)
-                        done.append((b, s, arr.T))
-            if not done:
+                if c == 0:
+                    intake.load(msc_bytes)
+                rows, procs, cw = intake.step(c)
+            if not procs:
                 continue
             with profile_scope("fleet/rs_decode"):
-                cw = np.concatenate([d[2] for d in done], axis=0)
                 corrected, nerr = rs.decode(cw, device=self.device)
             with profile_scope("fleet/finish"):
                 results = SuperframeProcessor.finish_batch(
-                    [self._sfp[b][s] for b, s, _ in done], corrected, nerr)
-                for (b, s, _), res in zip(done, results):
+                    procs, corrected.reshape(-1, RS_MESSAGE),
+                    nerr.reshape(-1))
+                intake.read_back()
+                for i, res in zip(rows.tolist(), results):
                     if res is not None:
+                        b, s = self._audio_rows[i]
                         ev_bs[(b, s)].append(
                             self._superframe_event(b, s, res))
         mp2 = [bs for bs in ev_bs if self._kinds[bs[0]][bs[1]] == "mp2"]

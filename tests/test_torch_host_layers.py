@@ -35,11 +35,13 @@ COPIED = [
 ONLY_JAX = {"dab.aac": {"_read_au_starts", "crc16_ragged"},
             "ops.crc": {"crc16_ragged"}}
 ONLY_PORT = {"host.native": {"native_status"},
-             # the batched superframe finish: its counter and tables
+             # the batched superframe finish and intake: counter and tables
              "dab.aac": {"SF_STATS", "_parse_header",
                          "_finish_tables", "_HEADERS", "_PARTS", "_PAST_AUS",
                          "_AU_RESIDUE", "_PARTS_ROW", "_EVEN", "_RS_FAILED",
-                         "crc16_bounds", "crc16_batch", "_crc16_table"},
+                         "crc16_bounds", "crc16_batch", "_crc16_table",
+                         "SuperframeIntake", "_Rows", "_firecode_holds",
+                         "_NO_ROWS"},
              "ops.crc": {"crc16_bounds", "_pointer", "_crc16_table_address",
                          "ctypes"},
              "host.io": {"profile_scope"},       # the span io/convert

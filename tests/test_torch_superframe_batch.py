@@ -169,7 +169,8 @@ def test_batched_finish_matches_the_sequential_finish(case, synced,
         assert [_state(p) for p in procs] == [_state(p) for p in jprocs]
         assert {key: aac.SF_STATS[key] - before[key] for key in before} == {
             "calls": 1, "superframes": k,
-            "finished": sum(r is not None for r in want)}
+            "finished": sum(r is not None for r in want),
+            "intake_calls": 0, "intake_frames": 0, "hunted": 0}
         if dmg is not None:
             assert sum(r is None or len(r[1]) < r[0].num_aus
                        for r in want) == -(-k // 3)
